@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from thor_tpu_torch import tables as T
+from thor_tpu_torch.kernels import build
 from thor_tpu_torch.ops import mc as MC
 
 LUMA = ("rsel", "y0", "x0", "op", "vf", "hf", "fs")
@@ -63,11 +65,14 @@ def test_chroma_kernel_equals_plain(cuda, bitdepth):
     u, v = (torch.from_numpy(rng.integers(0, 1 << bitdepth, (R, Hp, Wp))
                              .astype(np.int16)).to(cuda) for _ in range(2))
     cells = _cells(rng, n, R, Hp, Wp, 2, 8, False, cuda)
-    before = MC.CHROMA_LAUNCHES
+    before = MC.CHROMA_UV_LAUNCHES, MC.CHROMA_LAUNCHES
     pu, pv = MC.mc_cells_chroma_uv(u, v, *cells, 2, bitdepth)
+    assert (MC.CHROMA_UV_LAUNCHES, MC.CHROMA_LAUNCHES) == (before[0] + 1,
+                                                           before[1])
     one = MC.mc_cells_chroma(v, *cells, 2, bitdepth)
     torch.cuda.synchronize()
-    assert MC.CHROMA_LAUNCHES == before + 2
+    assert (MC.CHROMA_UV_LAUNCHES, MC.CHROMA_LAUNCHES) == (before[0] + 1,
+                                                           before[1] + 1)
     assert torch.equal(pu, MC.mc_cells_chroma_plain(u, *cells, 2, bitdepth))
     assert torch.equal(pv, MC.mc_cells_chroma_plain(v, *cells, 2, bitdepth))
     assert torch.equal(one, pv)
@@ -84,3 +89,126 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         MC.mc_cells_luma(ref16, *[cell.cpu()] * 7, 4, 8)
     with pytest.raises(ValueError):        # planes of two shapes
         MC.mc_cells_chroma_uv(ref16, ref16[:, :16], *[cell] * 6, 2, 8)
+
+
+def _stacks(rng, bitdepth, R, Hp, Wp, n, dev):
+    return [torch.from_numpy(rng.integers(0, 1 << bitdepth, (R, Hp, Wp))
+                             .astype(np.int16)).to(dev) for _ in range(n)]
+
+
+def _block_cells(rng, gh, gw, cs, pad, blk, nfrac, luma, dev, rsel=None,
+                 mv=8, shift=(0, 0)):
+    """Cells of a raster 4x4 (or 2x2) grid in blocks of blk x blk cells
+    that share one motion vector, reference and fractions, as a real
+    stream's plan has them; `shift` moves every origin."""
+    n = gh * gw
+    gy, gx = np.divmod(np.arange(n), gw)
+    b = (gy // blk) * ((gw + blk - 1) // blk) + gx // blk
+    nb = b.max() + 1
+    mvy, mvx = rng.integers(-mv, mv + 1, nb), rng.integers(-mv, mv + 1, nb)
+    c = {"rsel": rng.integers(0, 2, nb)[b] if rsel is None else rsel,
+         "y0": gy * cs + pad + mvy[b] + shift[0],
+         "x0": gx * cs + pad + mvx[b] + shift[1],
+         "op": rng.integers(0, 4, nb)[b],
+         "vf": rng.integers(0, nfrac, nb)[b],
+         "hf": rng.integers(0, nfrac, nb)[b]}
+    if luma:
+        c["fs"] = rng.integers(0, 2, nb)[b]
+    keys = LUMA if luma else CHROMA
+    return [torch.from_numpy(np.broadcast_to(c[k], (n,)).astype(np.int32))
+            .contiguous().to(dev) for k in keys]
+
+
+def _run_both(luma, bitdepth, refs, cells):
+    """Kernel against plain version, tolerance 0."""
+    if luma:
+        got = [MC.mc_cells_luma(refs[0], *cells, 4, bitdepth)]
+        want = [MC.mc_cells_luma_plain(refs[0], *cells, 4, bitdepth)]
+    else:
+        got = list(MC.mc_cells_chroma_uv(refs[0], refs[1], *cells, 2,
+                                         bitdepth))
+        got.append(MC.mc_cells_chroma(refs[1], *cells, 2, bitdepth))
+        want = [MC.mc_cells_chroma_plain(r, *cells, 2, bitdepth)
+                for r in (refs[0], refs[1], refs[1])]
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# (name, gh, gw, blk, rsel, mv): shapes of the cell groups
+SCENES = [
+    ("one_box", 16, 64, 16, 0, 2),        # a group's windows share a box
+    ("blocks", 16, 64, 2, None, 8),       # MVs and refs per 2x2 block
+    ("plane_edge", 16, 64, 16, 0, 2),     # windows clamp at the top left
+    ("far_edge", 16, 64, 16, 0, 2),       # ... and at the bottom right
+    ("whole_rows", 16, 64, 4, 0, 2),      # every vertical position whole
+    ("mixed_rsel", 16, 64, 16, "mixed", 2),
+    ("ragged", 5, 13, 4, 0, 2),           # N = 65: not a multiple of 32
+    ("one_cell", 1, 1, 1, 0, 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("luma", [True, False], ids=["luma", "chroma"])
+@pytest.mark.parametrize("bitdepth", [8, 10, 12])
+@pytest.mark.parametrize("scene", SCENES, ids=[s[0] for s in SCENES])
+def test_kernel_paths_equal_plain(cuda, scene, bitdepth, luma):
+    """Both row readers of each kernel (16-byte loads inside the plane's
+    columns, clamped gathers past them), the warp's choice of rows at
+    whole-sample vertical positions, all four ops (OP_NONE included), the
+    ragged last group and N = 1, at 8, 10 and 12 bits."""
+    name, gh, gw, blk, rsel, mv = scene
+    rng = np.random.default_rng([SCENES.index(scene), bitdepth, int(luma)])
+    cs, pad = (4, 160) if luma else (2, 80)
+    # planes a multiple of 8 samples wide, as the decoder's are
+    Hp, Wp = gh * cs + 2 * pad, (gw * cs + 2 * pad + 7) // 8 * 8
+    refs = _stacks(rng, bitdepth, 2, Hp, Wp, 1 if luma else 2, cuda)
+    n = gh * gw
+    if rsel == "mixed":
+        rsel = rng.integers(0, 2, n)
+    shift = {"plane_edge": (-pad - cs,) * 2,
+             "far_edge": (pad + cs,) * 2}.get(name, (0, 0))
+    cells = _block_cells(rng, gh, gw, cs, pad, blk, 4 if luma else 8, luma,
+                         cuda, rsel=rsel, mv=mv, shift=shift)
+    if name == "whole_rows":
+        cells[LUMA.index("vf")].zero_()
+    _run_both(luma, bitdepth, refs, cells)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("luma", [True, False], ids=["luma", "chroma"])
+def test_unaligned_planes_take_the_gather_path(cuda, luma):
+    """A plane width that is not a multiple of 8 samples rules out the
+    aligned 16-byte row loads: every row is gathered, and stays exact."""
+    rng = np.random.default_rng(7)
+    cs, pad = (4, 160) if luma else (2, 80)
+    gh, gw = 8, 30
+    Hp, Wp = gh * cs + 2 * pad, gw * cs + 2 * pad + 3
+    refs = _stacks(rng, 10, 2, Hp, Wp, 1 if luma else 2, cuda)
+    cells = _block_cells(rng, gh, gw, cs, pad, 8, 4 if luma else 8, luma,
+                         cuda, rsel=0)
+    _run_both(luma, 10, refs, cells)
+
+
+@pytest.mark.cuda
+def test_constant_taps_equal_tables(cuda):
+    lib = build.load()
+    bank = np.zeros(48, np.int32)
+    lowpass = np.zeros(16, np.int32)
+    chroma = np.zeros(32, np.int32)
+    assert lib.thor_mc_luma_taps(bank.ctypes.data, lowpass.ctypes.data) == 0
+    assert lib.thor_mc_chroma_taps(chroma.ctypes.data) == 0
+    assert (bank.reshape(2, 4, 6) == np.stack([T.COEFFS_STANDARD,
+                                                T.COEFFS_BIPRED])).all()
+    assert (lowpass.reshape(4, 4) == T.LOWPASS_K).all()
+    assert (chroma.reshape(8, 4) == T.COEFFS_CHROMA).all()
+
+
+@pytest.mark.cuda
+def test_kernels_take_only_the_main_path_cell_sizes(cuda):
+    ref = torch.zeros((1, 64, 64), dtype=torch.int16, device=cuda)
+    cell = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="4x4"):
+        MC.mc_cells_luma(ref, *[cell] * 7, 8, 8)
+    with pytest.raises(ValueError, match="2x2"):
+        MC.mc_cells_chroma_uv(ref, ref, *[cell] * 6, 4, 8)

@@ -74,7 +74,10 @@ def test_refuses_streams_outside_the_slice(name, why):
 
 
 def test_package_never_imports_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|thor_tpu)\b", re.M)
+    """No import of jax or thor_tpu, no loader alias of thor_tpu's files
+    and no path built onto the thor_tpu directory."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|thor_tpu)\b|_thor_tpu_host"
+                     r"|[\"']thor_tpu[\"']|join\([^)]*[\"']thor_tpu/", re.M)
     srcs = glob.glob(os.path.join(REPO, "thor_tpu_torch", "**", "*.py"),
                      recursive=True)
     assert srcs
@@ -84,16 +87,23 @@ def test_package_never_imports_jax():
 
 
 def test_decodes_without_jax(tmp_path):
-    """A process where `import jax` fails decodes tiny64_ldblc exactly
-    and never loads the real thor_tpu package."""
+    """A process where `import jax` fails decodes tiny64_ldblc exactly,
+    never loads the real thor_tpu package nor any file under thor_tpu/
+    (no `_thor_tpu_host` alias either), and builds its C host tier from
+    thor_tpu_torch/_native."""
     code = (
-        "import sys, hashlib\n"
+        "import os, sys, hashlib\n"
         "sys.modules['jax'] = None\n"
         "import thor_tpu_torch\n"
         "_, fr = thor_tpu_torch.decode_stream(open(sys.argv[1], 'rb')"
         ".read(), device='cpu')\n"
-        "bad = [m for m in sys.modules if m == 'thor_tpu' or "
-        "m.startswith(('thor_tpu.', 'jax.'))]\n"
+        "ref = os.path.join(os.getcwd(), 'thor_tpu') + os.sep\n"
+        "bad = [m for m, mod in list(sys.modules.items()) if m == 'thor_tpu'"
+        " or m.startswith(('thor_tpu.', 'jax.', '_thor_tpu_host'))"
+        " or (getattr(mod, '__file__', None) or '').startswith(ref)]\n"
+        "from thor_tpu_torch import _native\n"
+        "port = os.path.join(os.getcwd(), 'thor_tpu_torch', '_native')\n"
+        "bad += [s for s in _native._SRCS if os.path.dirname(s) != port]\n"
         "print(hashlib.sha256(b''.join(fr)).hexdigest(), bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code,
@@ -106,12 +116,14 @@ def test_decodes_without_jax(tmp_path):
 
 
 def test_cli_dec(tmp_path):
-    """python -m thor_tpu_torch.cli dec: Thordec's stdout, golden YUV."""
+    """python -m thor_tpu_torch.cli dec: Thordec's stdout, golden YUV
+    (on the CPU, which THOR_TORCH_DEVICE asks for)."""
     out = tmp_path / "out.yuv"
     r = subprocess.run([sys.executable, "-m", "thor_tpu_torch.cli", "dec",
                         os.path.join(GOLDEN, "tiny64_ldblc.bit"), str(out)],
                        capture_output=True, text=True, cwd=REPO,
-                       timeout=600)
+                       timeout=600,
+                       env={**os.environ, "THOR_TORCH_DEVICE": "cpu"})
     assert r.returncode == 0, r.stderr
     with open(os.path.join(GOLDEN, "stdout", "tiny64_ldblc_dec.txt")) as f:
         assert r.stdout == f.read()

@@ -1,15 +1,21 @@
 """thor_tpu_torch: the Thor decoder on PyTorch and CUDA (NVIDIA Hopper).
 
-A port of thor_tpu's device tier; thor_tpu stays the reference.  The host
-tier (C block parser, syntax walk, tables, frame buffers) is thor_tpu's
-own code, loaded without JAX (_host.py).
+A port of thor_tpu, which stays the reference.  The port imports nothing
+of thor_tpu: it keeps its own copy of the host tier that its decode runs
+(C block parser, bit reader, tables, frame buffers, the numpy spec of
+inter and filters, the frame driver), and its device
+tier is torch with hand-written CUDA kernels.  Entry points decode on the
+CUDA card unless the caller asks for the CPU (`device="cpu"`).
 
 Layout:
-- tables.py: the normative tables as device tensors (to_device)
+- tables.py: the normative tables, and the same as device tensors
+  (to_device)
+- bitstream.py, frame.py, io_y4m.py, spec/, _native/, dec/native_parse.py,
+  dec/decoder.py, cli.py: the host tier, copied from thor_tpu (what the
+  decode runs of it)
 - ops/: torch functions and CUDA kernel wrappers, bit-exact with
   thor_tpu/ops (mc.py wraps csrc/*.cu)
 - dec/: the frame decoder on the device and the decoder entry point
 - csrc/, kernels/: CUDA C++ sources for sm_90a and their build/binding
 """
-from . import _host  # noqa: F401  (first: sets up the host-tier alias)
 from .dec.decoder import decode_stream  # noqa: F401

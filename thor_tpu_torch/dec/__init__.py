@@ -1,2 +1,3 @@
-"""Decoder of the port: the host syntax walk of thor_tpu driving the
+"""Decoder of the port: the host frame driver (decoder.py, copied from
+thor_tpu) over the native block parser (native_parse.py), driving the
 torch/CUDA frame decoder (device_frame.DeviceFrameDecoder)."""

@@ -12,8 +12,7 @@ no cfl_inter, no qmtx, no tb-split intra (`eligible` raises on the rest).
 The host helpers (`LY_KEYS`, `CH_KEYS`, `SEG_BUCKETS`, `INTRA_SIZES`,
 `_bucket`, `build_wave_segments`) are verbatim copies of
 thor_tpu/dec/device_frame.py:42-54 and :226-269: the original imports JAX
-at the top, and the host decoder imports this module under its name
-(thor_tpu_torch/_host.py).
+at the top, and the port's decoder imports this module in its place.
 """
 from __future__ import annotations
 
@@ -22,14 +21,14 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from .._host import native_parse as NP
-from .._host import spec_filters as SF
-from .._host import spec_inter as inter
-from .._host import tables
+from .. import tables
+from ..spec import filters as SF
+from ..spec import inter
 from ..ops import filters as OF
 from ..ops import intra_batch as IB
 from ..ops.transform import _i16
 from . import device_pixels as DP
+from . import native_parse as NP
 
 CHROMA_QP = tables.CHROMA_QP
 log2i = tables.log2i
@@ -480,8 +479,7 @@ class DeviceFrameDecoder:
 
     def eligible(self, dec, blks):
         """True for every frame of the slice; raises on the rest, which
-        the host decoder would otherwise send to host-pixel or JAX
-        paths."""
+        the decoder would otherwise send to its unported fallbacks."""
         h = dec.h
         if h.subsample != 420 or h.cfl_inter or h.qmtx:
             raise NotImplementedError(

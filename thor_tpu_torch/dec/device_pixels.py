@@ -3,18 +3,18 @@ thor_tpu/dec/device_pixels.py).
 
 The host helpers below (`_clip_mv`, `_plan_luma`, `_plan_chroma`,
 `_pad_to`, `FramePlan`) are verbatim copies of thor_tpu/dec/device_pixels.py
-:43-187: the original module imports JAX at the top, and the host decoder
-builds its `FramePlan` from this module (thor_tpu_torch/_host.py registers
-it under the original's name).  The device functions are torch:
-dequantization with the inverse transform, and motion compensation over
-cells through the CUDA kernels of ops/mc.py.
+:43-187: the original module imports JAX at the top, and the port's
+decoder builds its `FramePlan` from this module.  The device functions
+are torch: dequantization with the inverse transform, and motion
+compensation over cells through the CUDA kernels of ops/mc.py.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .._host import spec_inter, tables
+from .. import tables
+from ..spec import inter as spec_inter
 from ..ops.mc import (OP_COPY, OP_LOWPASS, OP_NONE, OP_SIXTAP,  # noqa: F401
                       mc_cells_chroma, mc_cells_chroma_uv, mc_cells_luma)
 from ..ops.transform import _i16, inv_transform_batch

@@ -1,11 +1,17 @@
 """Build and bind the port's CUDA kernels.
 
-`thor_tpu_torch/csrc/*.cu` is compiled by `nvcc` for Hopper (`sm_90a`)
-into one shared library with a plain C interface, loaded with ctypes.
-The library goes to `build/thor_tpu_torch/` at the repository root, under
-a name keyed by the sources and flags, on first use; nothing is built
-when the module is imported.  The build needs the CUDA toolkit
-(`$CUDA_HOME/bin/nvcc`, default `/usr/local/cuda`, or `nvcc` on PATH).
+Each `thor_tpu_torch/csrc/*.cu` is compiled by its own `nvcc` process for
+Hopper (`sm_90a`), all started together, and the objects are linked into
+one shared library with a plain C interface, loaded with ctypes.  The
+library goes to `BUILD_DIR` (`build/thor_tpu_torch/` at the repository
+root), under a name keyed by the sources and flags, on first use; nothing
+is built when the module is imported.  The port's C host tier
+(`_native/`) builds into the same directory.  The build needs the CUDA
+toolkit (`$CUDA_HOME/bin/nvcc`, default `/usr/local/cuda`, or `nvcc` on
+PATH).
+
+`load` also reads back the taps that the kernels hold in `__constant__`
+memory and raises unless they equal `tables.py`.
 """
 from __future__ import annotations
 
@@ -16,12 +22,14 @@ import os
 import shutil
 import subprocess
 
-from .._host import BUILD_DIR
+import numpy as np
 
-CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc")
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# what the port builds: the CUDA kernels and its copy of the C host tier
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "thor_tpu_torch")
+CSRC = os.path.join(_PKG, "csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 build_log = ""   # the compiler's report (ptxas -v) of the last build
@@ -51,16 +59,70 @@ def library_path() -> str:
 
 
 def _bind(lib):
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.thor_mc_luma_cells.argtypes = [i, p, i, i, i, p, p, p, p, p, p, p,
-                                       i, i, i, p, p, p, p]
+                                       q, i, i, p, p]
     lib.thor_mc_luma_cells.restype = i
     lib.thor_mc_chroma_cells.argtypes = [i, p, p, i, i, i, p, p, p, p, p, p,
-                                         i, i, i, p, p, p, p]
+                                         q, i, i, p, p, p]
     lib.thor_mc_chroma_cells.restype = i
+    lib.thor_mc_luma_taps.argtypes = [p, p]
+    lib.thor_mc_luma_taps.restype = i
+    lib.thor_mc_chroma_taps.argtypes = [p]
+    lib.thor_mc_chroma_taps.restype = i
     lib.thor_cuda_error_string.argtypes = [i]
     lib.thor_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _compile(so: str) -> str:
+    """One nvcc per source, all at once, then one link; returns the
+    compilers' reports."""
+    tmp = f"{so}.{os.getpid()}"
+    srcs = [s for s in _sources() if s.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(srcs, objs)]
+    logs, failed = [], []
+    for s, pr in zip(srcs, procs):
+        out = pr.communicate()[0]
+        logs.append(out)
+        if pr.returncode != 0:
+            failed.append(f"{os.path.basename(s)} ({pr.returncode}):\n{out}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        r = subprocess.run([_nvcc(), "-shared", "-o", f"{tmp}.tmp", *objs],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError("nvcc link failed (%d):\n%s\n%s" % (
+                r.returncode, r.stdout, r.stderr))
+        os.replace(f"{tmp}.tmp", so)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    return "".join(logs)
+
+
+def _check_taps(lib):
+    """The __constant__ taps equal tables.py's (read back once)."""
+    from ..tables import CHROMA_BANK, LOWPASS_K, LUMA_BANK
+    bank = np.zeros(LUMA_BANK.size, np.int32)
+    lowpass = np.zeros(LOWPASS_K.size, np.int32)
+    chroma = np.zeros(CHROMA_BANK.size, np.int32)
+    check(lib, lib.thor_mc_luma_taps(bank.ctypes.data, lowpass.ctypes.data),
+          "thor_mc_luma_taps")
+    check(lib, lib.thor_mc_chroma_taps(chroma.ctypes.data),
+          "thor_mc_chroma_taps")
+    for name, got, want in (("luma", bank, LUMA_BANK),
+                            ("lowpass", lowpass, LOWPASS_K),
+                            ("chroma", chroma, CHROMA_BANK)):
+        if not np.array_equal(got, want.reshape(-1)):
+            raise RuntimeError(f"the {name} taps in csrc/ differ from "
+                               f"tables.py: {got.tolist()}")
 
 
 def load():
@@ -71,16 +133,10 @@ def load():
     so = library_path()
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[s for s in _sources() if s.endswith(".cu")]]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError("nvcc failed (%d):\n%s\n%s" % (
-                r.returncode, r.stdout, r.stderr))
-        build_log = r.stdout + r.stderr
-        os.replace(tmp, so)
-    _lib = _bind(ctypes.CDLL(so))
+        build_log = _compile(so)
+    lib = _bind(ctypes.CDLL(so))
+    _check_taps(lib)
+    _lib = lib
     return _lib
 
 

@@ -5,9 +5,9 @@ common_block.c:224-345).
 The host mask functions `_mv_ge4`, `deblock_masks_y`,
 `deblock_masks_uv` (thor_tpu/ops/filters.py:32-93), `clpf_pixel_mask`
 (:223-275) and `cdef_block_maps` (:529-574) are verbatim copies, except
-that `cdef_block_maps` finds `cdef_allskip` at module level instead of
-importing it: the original module imports JAX at the top, and the host
-decoder imports this module under its name (thor_tpu_torch/_host.py).
+that `cdef_block_maps` imports `cdef_allskip` at module level: the
+original module imports JAX at the top, and the port's decoder imports
+this module in its place.
 The device functions are torch, with integer arithmetic throughout;
 every pass is a dense masked stencil over the whole plane, as in JAX.
 """
@@ -16,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._host import spec_filters, tables as T
+from .. import tables as T
+from ..spec.filters import cdef_allskip
 from ..tables import to_device
 
 MODE_SKIP = 0
@@ -24,7 +25,6 @@ MODE_INTRA = 1
 MIN_PB_SIZE = T.MIN_PB_SIZE
 MIN_BLOCK_SIZE = T.MIN_BLOCK_SIZE
 log2i = T.log2i
-cdef_allskip = spec_filters.cdef_allskip
 
 
 def edge_pad(x, pad: int):

@@ -8,6 +8,8 @@ they launch the hand-written kernels of csrc/mc_luma.cu and
 csrc/mc_chroma.cu (which replace the three Pallas kernels of
 thor_tpu/ops/mc_pallas.py); on a CPU tensor they run the plain version.
 There is no other route: a CUDA tensor gets the kernel or an exception.
+The kernels take the cell sizes of the decoder's main path, 4x4 luma and
+2x2 chroma; the wrappers raise for another size on CUDA.
 
 Indices follow JAX's gather: a negative index counts from the end and
 every index is then clamped into range (`_jidx`), so both versions equal
@@ -15,23 +17,19 @@ the XLA gathers on any input.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..kernels import build
-from ..tables import CHROMA_BANK, LOWPASS_K, LUMA_BANK, to_device
+from ..tables import LOWPASS_K, to_device
 
 OP_NONE, OP_COPY, OP_SIXTAP, OP_LOWPASS = 0, 1, 2, 3
 
 # kernel launches since the counts were last set to 0 (plain integers;
-# chip_smoke.py and the tests read and reset them)
+# chip_smoke.py and the tests read and reset them): luma, chroma U+V (the
+# two-plane case) and chroma of one plane
 LUMA_LAUNCHES = 0
+CHROMA_UV_LAUNCHES = 0
 CHROMA_LAUNCHES = 0
-
-# host copies of the taps, handed to the kernels' __constant__ memory
-_LUMA_TAPS = np.ascontiguousarray(LUMA_BANK.reshape(-1), np.int32)
-_LOWPASS_TAPS = np.ascontiguousarray(LOWPASS_K.reshape(-1), np.int32)
-_CHROMA_TAPS = np.ascontiguousarray(CHROMA_BANK.reshape(-1), np.int32)
 
 
 def _jidx(i, n: int):
@@ -118,9 +116,12 @@ def _launch_args(ref_stack):
             torch.cuda.current_stream(dev).cuda_stream)
 
 
-def _require_cuda(t):
+def _require_cuda(t, cs: int, kernel_cs: int):
     if t.device.type != "cuda":
         raise ValueError(f"no MC kernel for device {t.device}")
+    if cs != kernel_cs:
+        raise ValueError(f"the CUDA kernel takes {kernel_cs}x{kernel_cs} "
+                         f"cells, not {cs}x{cs}")
 
 
 def mc_cells_luma(ref_stack, rsel, y0, x0, op, vf, hf, fs, cs: int,
@@ -131,7 +132,7 @@ def mc_cells_luma(ref_stack, rsel, y0, x0, op, vf, hf, fs, cs: int,
     if ref_stack.device.type == "cpu":
         return mc_cells_luma_plain(ref_stack, rsel, y0, x0, op, vf, hf, fs,
                                    cs, bitdepth)
-    _require_cuda(ref_stack)
+    _require_cuda(ref_stack, cs, 4)
     global LUMA_LAUNCHES
     n = y0.shape[0]
     cells = (rsel, y0, x0, op, vf, hf, fs)
@@ -145,8 +146,7 @@ def mc_cells_luma(ref_stack, rsel, y0, x0, op, vf, hf, fs, cs: int,
     R, Hp, Wp = ref_stack.shape
     rc = lib.thor_mc_luma_cells(
         device, ref_stack.data_ptr(), R, Hp, Wp,
-        *[c.data_ptr() for c in cells], n, cs, bitdepth,
-        _LUMA_TAPS.ctypes.data, _LOWPASS_TAPS.ctypes.data, out.data_ptr(),
+        *[c.data_ptr() for c in cells], n, cs, bitdepth, out.data_ptr(),
         stream)
     build.check(lib, rc, "mc_luma_cells")
     LUMA_LAUNCHES += 1
@@ -155,8 +155,8 @@ def mc_cells_luma(ref_stack, rsel, y0, x0, op, vf, hf, fs, cs: int,
 
 def _chroma_kernel(u_stack, v_stack, rsel, y0, x0, op, vf, hf, cs: int,
                    bitdepth: int):
-    global CHROMA_LAUNCHES
-    _require_cuda(u_stack)
+    global CHROMA_LAUNCHES, CHROMA_UV_LAUNCHES
+    _require_cuda(u_stack, cs, 2)
     n = y0.shape[0]
     cells = (rsel, y0, x0, op, vf, hf)
     stacks = (u_stack,) if v_stack is None else (u_stack, v_stack)
@@ -171,11 +171,13 @@ def _chroma_kernel(u_stack, v_stack, rsel, y0, x0, op, vf, hf, cs: int,
     rc = lib.thor_mc_chroma_cells(
         device, u_stack.data_ptr(),
         None if v_stack is None else v_stack.data_ptr(), R, Hp, Wp,
-        *[c.data_ptr() for c in cells], n, cs, bitdepth,
-        _CHROMA_TAPS.ctypes.data, outs[0].data_ptr(),
+        *[c.data_ptr() for c in cells], n, cs, bitdepth, outs[0].data_ptr(),
         None if v_stack is None else outs[1].data_ptr(), stream)
     build.check(lib, rc, "mc_chroma_cells")
-    CHROMA_LAUNCHES += 1
+    if v_stack is None:
+        CHROMA_LAUNCHES += 1
+    else:
+        CHROMA_UV_LAUNCHES += 1
     return outs
 
 

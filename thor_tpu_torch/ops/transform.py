@@ -1,6 +1,6 @@
 """Batched integer inverse transform (torch port of thor_tpu/ops/transform.py).
 
-Bit-exact with spec.transform_quant.transform_inv.  CUDA has no integer
+Bit-exact with thor_tpu/spec/transform_quant.py:transform_inv.  CUDA has no integer
 GEMM in torch, and a bf16 product rounds, so each stage is a float64
 matrix product: every input is an int16 value, every |T| <= 90 and a
 stage sums at most 32 terms, so each partial sum is an integer below
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .._host import tables as T
+from .. import tables as T
 from ..tables import to_device
 
 
@@ -29,7 +29,7 @@ def inv_transform_batch(coeff: torch.Tensor, size: int, bitdepth: int = 8):
 
     coeff: [B, size, size] integer (int16-range values; only the top-left
     min(16,size)^2 nonzero).  Returns [B, size, size] int32 residuals.
-    Mirrors spec.transform_quant.transform_inv."""
+    Mirrors thor_tpu/spec/transform_quant.py:transform_inv."""
     if size >= 64:
         scale = size // 32
         blk = inv_transform_batch(coeff[:, :32, :32], 32, bitdepth)
