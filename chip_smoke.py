@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-mc DIR
+    python3 chip_smoke.py --profile-tempinterp
 
 With no arguments it runs the phases below; any failure raises and the
 exit code is non-zero:
@@ -16,16 +17,26 @@ exit code is non-zero:
   2. golden streams through the port's decode_stream on the card, each
      byte-equal to its reference YUV;
   3. the main path: the 8-frame 1080p LDB-LC bench stream, whose output
-     must hash to bench.REC_SHA256, with the MC kernels' launch counts
+     must hash to BENCH_REC_SHA256, with the MC kernels' launch counts
      and the frame decoder's run count taken over that decode alone (it
-     must launch the luma and the U+V kernel; no path of the port calls
-     the one-plane chroma case yet, and its count is printed as read);
-     the cells that pixel_core receives for frame 1 are kept;
+     must launch the luma and the U+V kernel); the cells that pixel_core
+     receives for frame 1 are kept;
   4. each kernel against its plain version on frame 1's cells (bit
      depths 8 and 10), then both timed on the real and the random cells
      at 8 bits, beside the bound: the bytes the function must move (each
      metadata array read once, each output written once, and the
-     distinct reference samples the cells' ops need) at 3.35 TB/s.
+     distinct reference samples the cells' ops need) at 3.35 TB/s;
+  5. the tile pipeline (models/pipeline.py) on the card:
+     decode_p_frame_420 on a 1080p example (8,160 tiles: the luma and the
+     U+V kernel) and on entry()'s CIF example (396 tiles: the luma kernel
+     and the one-plane chroma kernel once per plane), and
+     decode_inter_frame_16 at 1080p, each equal to the same function on
+     the CPU (the plain versions) on the same inputs; launch counts taken
+     over these three calls alone; then the three kernels against their
+     plain versions on the cells those tiles expand into, and timed there;
+  6. temporal interpolation at 1080p: frames 6 and 7 of phase 3's decode
+     as the two references, interpolate_frames at (ratio, pos) (2, 1) and
+     (4, 1) on the card, equal to the same call on the CPU.
 Times are device times: the launches queue behind a sleeping kernel, so
 the events time the card's work and not the Python that issues it
 (`call_ms`, one call timed alone, includes that; `kernel_ms` is the
@@ -35,6 +46,8 @@ results, the last line {"ok": true, "device": {...}}.
 
 `--time-mc DIR` times the MC wrappers of the checkout at DIR instead (see
 `time_mc`), for an A/B of two checkouts on one card.
+`--profile-tempinterp` traces one 1080p temporal interpolation with
+torch.profiler instead (see `profile_tempinterp`).
 """
 import argparse
 import hashlib
@@ -47,7 +60,18 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = ("tiny64_ldblc", "noise_cif_ldblc", "smooth_cif_ldblc",
-           "small256_LDB_medium_complexity")
+           "small256_LDB_medium_complexity",
+           # B frames over a temporally interpolated reference
+           "hdb9_128", "ir2_128", "ra9_256", "s17_RA_medium_complexity",
+           "s17_HDB16_low_complexity",
+           # weighted dequantization (qmtx)
+           "small256_LDB_qm_medium_complexity")
+# the 8-frame 1920x1088 LDB low-complexity stream that bench.py decodes,
+# and the sha256 of its reference decode (tests/test_torch_decode.py holds
+# both equal to bench.py's)
+BENCH_STREAM = os.path.join(REPO, "benchmarks", "stream_1080p_lc.bit")
+BENCH_REC_SHA256 = ("287b83855649b54ea8deb70db12cb222"
+                    "f16561eb25150ecdb1217823111425ef")
 H1080, W1080 = 1088, 1920
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 rate
 # int32 multiply-adds run outside the tensor cores: the H100 SXM float32
@@ -55,16 +79,31 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 rate
 OPS_PER_S = 67e12
 SRC = "thor_tpu_torch/csrc/"
 KERNELS = {   # name: (source, the Pallas call it replaces, launch counter
-    #                in ops/mc.py, whether the main path must launch it)
+    #                in ops/mc.py, the launches each driven path must make:
+    #                the bench decode at least, the tile pipeline exactly)
     "mc_luma_cells": (SRC + "mc_luma.cu", "thor_tpu/ops/mc_pallas.py:164",
-                      "LUMA_LAUNCHES", True),
+                      "LUMA_LAUNCHES", {"bench_decode": 1,
+                                        "tile_pipeline": 3}),
     "mc_chroma_uv_cells": (SRC + "mc_chroma.cu",
                            "thor_tpu/ops/mc_pallas.py:385",
-                           "CHROMA_UV_LAUNCHES", True),
+                           "CHROMA_UV_LAUNCHES", {"bench_decode": 1,
+                                                  "tile_pipeline": 1}),
+    # the one-plane case of thor_mc_chroma_cells: the tile pipeline takes
+    # it when the tile count is no multiple of 16 (CIF: 396)
     "mc_chroma_cells": (SRC + "mc_chroma.cu",
                         "thor_tpu/ops/mc_pallas.py:274", "CHROMA_LAUNCHES",
-                        False),
+                        {"bench_decode": 0, "tile_pipeline": 2}),
 }
+
+
+def reset_launches(MC):
+    for _, _, counter, _ in KERNELS.values():
+        setattr(MC, counter, 0)
+
+
+def read_launches(MC):
+    return {name: getattr(MC, counter)
+            for name, (_, _, counter, _) in KERNELS.items()}
 
 
 def card_line():
@@ -379,11 +418,10 @@ def phase_main_path(device, card):
     over this decode alone; returns the counts and frame 1's MC inputs
     as pixel_core received them."""
     import torch
-    import bench
     from thor_tpu_torch.dec import decoder as PD
     from thor_tpu_torch.dec import device_frame as DF
     from thor_tpu_torch.ops import mc as MC
-    with open(bench.STREAM, "rb") as f:
+    with open(BENCH_STREAM, "rb") as f:
         data = f.read()
     times = []
     orig = PD.Decoder.decode_frame
@@ -396,8 +434,7 @@ def phase_main_path(device, card):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for _, _, counter, _ in KERNELS.values():
-        setattr(MC, counter, 0)
+    reset_launches(MC)
     DF.RUNS = 0
     PD.Decoder.decode_frame = timed
     seen, orig_core = capture_pixel_core(DF)
@@ -408,29 +445,29 @@ def phase_main_path(device, card):
         PD.Decoder.decode_frame = orig
         DF.pixel_core = orig_core
     wall = time.time() - t0
-    launches = {name: getattr(MC, counter)
-                for name, (_, _, counter, _) in KERNELS.items()}
+    launches = read_launches(MC)
     runs = DF.RUNS
     digest = hashlib.sha256(b"".join(frames)).hexdigest()
-    if digest != bench.REC_SHA256:
+    if digest != BENCH_REC_SHA256:
         raise AssertionError(f"1080p output sha256 {digest} != "
-                             f"{bench.REC_SHA256}")
+                             f"{BENCH_REC_SHA256}")
     if runs != len(frames) or len(frames) != 8:
         raise AssertionError(f"DeviceFrameDecoder.run served {runs} of "
                              f"{len(frames)} frames")
-    for name, (_, _, _, on_path) in KERNELS.items():
-        if on_path and launches[name] <= 0:
+    for name, (_, _, _, need) in KERNELS.items():
+        if launches[name] < need["bench_decode"]:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"main path")
     steady = times[3:] if len(times) > 4 else times
     fps = len(steady) / sum(steady)
-    print(f"phase 3: 1080p LDB-LC bench stream: sha256 matches REC_SHA256; "
+    print(f"phase 3: 1080p LDB-LC bench stream: sha256 matches its "
+          f"reference decode's; "
           f"{len(frames)} frames, steady fps (frames 3..) {fps:.4f}, "
           f"whole stream {len(frames) / wall:.4f} fps ({wall:.3f} s); "
           f"per-frame s {[round(t, 4) for t in times]}; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
           f"launches {launches}, runs {runs}; card {card}", flush=True)
-    return launches, pixel_core_cells(DF, seen[1])
+    return launches, pixel_core_cells(DF, seen[1]), frames
 
 
 def capture_pixel_core(DF):
@@ -501,6 +538,124 @@ def phase_real_cells(device, card, real, rand):
     return out
 
 
+def tile_cells(MC, args, device):
+    """The kernels' inputs for one make_example_full argument tuple: the
+    int16 reference stacks and the cells that ops/mc.py's tile functions
+    expand the 16x16 luma and 8x8 chroma tiles into."""
+    import torch
+    refy, refu, refv, oy, ox, fv, fh, coy, cox, cfv, cfh = (
+        torch.from_numpy(a).to(device) for a in args[:11])
+    zero = torch.zeros_like(fv)
+    op, fs = MC._tile_ops(fv, fh, 0)
+    y0, x0, rsel, op, vf, hf, fs = MC._tiles_to_cells(
+        oy, ox, (zero, op, fv, fh, fs), 16, 4, 2)
+    lc = {"rsel": rsel, "y0": y0, "x0": x0, "op": op, "vf": vf, "hf": hf,
+          "fs": fs}
+    cc = dict(zip(("rsel", "y0", "x0", "op", "vf", "hf"),
+                  MC._chroma_tile_cells(coy, cox, cfv, cfh, 8)))
+    return {"planes": tuple(MC._stack16(r) for r in (refy, refu, refv)),
+            "lc": lc, "cc": cc}
+
+
+def phase_tiles(device, card):
+    """Phase 5: the tile pipeline on the card against itself on the CPU,
+    its launch counts, and the kernels on the cells its tiles become."""
+    import torch
+    from thor_tpu_torch import entry as PE
+    from thor_tpu_torch.models import pipeline as PP
+    from thor_tpu_torch.ops import mc as MC
+    H, W = H1080, W1080
+    full, _, _ = PP.make_example_full(H, W, qp=32, seed=1)
+    inter16 = PP.make_example(H, W, qp=32, seed=2)
+    fn, cif = PE.entry(device=device)
+    cif_cpu = [a.cpu() for a in cif]
+    kw = dict(height=H, width=W, qp=32, bitdepth=8)
+    runs = (
+        (f"decode_p_frame_420 {W}x{H} ({len(full[3])} tiles)",
+         lambda d: PP.decode_p_frame_420(*full, device=d, **kw)),
+        (f"entry() CIF decode_p_frame_420 ({len(cif[3])} tiles)",
+         lambda d: fn(*cif) if d is device else
+         fn.func(*cif_cpu, **{**fn.keywords, "device": d})),
+        (f"decode_inter_frame_16 {W}x{H}",
+         lambda d: (PP.decode_inter_frame_16(*inter16, device=d, **kw),)),
+    )
+    for _, run in runs:     # warm up: allocator, tables on the card
+        run(device)
+    torch.cuda.synchronize()
+    reset_launches(MC)
+    got, ms = [], []
+    for _, run in runs:
+        t0 = time.perf_counter()
+        got.append(run(device))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches(MC)
+    for (what, run), g, t in zip(runs, got, ms):
+        want = run("cpu")
+        err = max_err([x.cpu() for x in g], want)
+        print(f"phase 5: {what}: {t:.3f} ms on the card, max_abs_err {err} "
+              f"against the CPU's plain versions; card {card}", flush=True)
+        if err != 0 or any(x.shape != w.shape for x, w in zip(g, want)):
+            raise AssertionError(f"{what}: the card's result differs from "
+                                 f"the CPU's")
+    print(f"phase 5: launches {launches}", flush=True)
+    for name, (_, _, _, need) in KERNELS.items():
+        if launches[name] != need["tile_pipeline"]:
+            raise AssertionError(
+                f"kernel {name}: {launches[name]} launches on the tile "
+                f"pipeline, expected {need['tile_pipeline']}")
+    out = {}
+    for what, args in ((f"5 tiles {W}x{H}", full),
+                       ("5 tiles CIF", [a.numpy() for a in cif_cpu])):
+        c = tile_cells(MC, args, device)
+        out[what] = check_and_time(MC, device, what, *c["planes"], c["lc"],
+                                   c["cc"], 8, True, card)
+    return launches, out
+
+
+def bench_refs(frames):
+    """Frames 6 and 7 of the bench stream's decode as padded reference
+    frames, the inputs of the 1080p interpolation."""
+    from thor_tpu_torch.frame import new_ref_frame
+    refs = []
+    for data in frames[6:8]:
+        f = new_ref_frame(W1080, H1080)
+        f.read_from(data)
+        f.pad_frame()
+        refs.append(f)
+    return refs
+
+
+def phase_tempinterp(device, card, frames):
+    """Phase 6: temporal interpolation between two decoded frames, the
+    card against the CPU."""
+    import torch
+    from thor_tpu_torch.frame import new_ref_frame
+    from thor_tpu_torch.ops.tempinterp import interpolate_frames
+    H, W = H1080, W1080
+    refs = bench_refs(frames)
+    for ratio, pos in ((2, 1), (4, 1)):
+        outs = []
+        for dev in (device, "cpu"):
+            out = new_ref_frame(W, H)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            interpolate_frames(out, refs[0], refs[1], ratio, pos, device=dev)
+            torch.cuda.synchronize()
+            outs.append((out, time.time() - t0))
+        (got, t_card), (want, t_cpu) = outs
+        for plane in ("y_full", "u_full", "v_full"):
+            g, w = getattr(got, plane), getattr(want, plane)
+            if g.shape != w.shape or (g != w).any():
+                raise AssertionError(f"interpolate_frames ratio {ratio} pos "
+                                     f"{pos}: {plane} differs from the CPU's")
+        if not got.y.any():
+            raise AssertionError("the interpolated frame is empty")
+        print(f"phase 6: interpolate_frames {W}x{H} ratio {ratio} pos {pos}: "
+              f"{t_card:.3f} s on the card, equal to the CPU's "
+              f"({t_cpu:.3f} s on this host's CPU); card {card}", flush=True)
+
+
 class _Captured(Exception):
     pass
 
@@ -508,7 +663,6 @@ class _Captured(Exception):
 def frame1_cells(device):
     """Decodes the bench stream up to frame 1's pixel_core call and
     returns that call's MC inputs (pixel_core_cells)."""
-    import bench
     from thor_tpu_torch.dec import decoder as PD
     from thor_tpu_torch.dec import device_frame as DF
     seen, orig = capture_pixel_core(DF)
@@ -521,7 +675,7 @@ def frame1_cells(device):
         return r
 
     DF.pixel_core = core
-    with open(bench.STREAM, "rb") as f:
+    with open(BENCH_STREAM, "rb") as f:
         data = f.read()
     try:
         PD.decode_stream(data, device=device)
@@ -563,11 +717,57 @@ def time_mc(root):
     return 0
 
 
+def profile_tempinterp():
+    """--profile-tempinterp: decodes the bench stream, interpolates between
+    its frames 6 and 7 at (ratio, pos) = (2, 1) once untraced and once
+    under torch.profiler (CUDA activity only), and prints one JSON line:
+    the card, the untraced and the traced seconds, the number of kernels
+    the card ran, their summed device time, the idle share of the traced
+    call, and the five kernels with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sys.path.insert(0, REPO)
+    from thor_tpu_torch import decode_stream
+    from thor_tpu_torch.frame import new_ref_frame
+    from thor_tpu_torch.ops.tempinterp import interpolate_frames
+    device = torch.device("cuda", 0)
+    with open(BENCH_STREAM, "rb") as f:
+        _, frames = decode_stream(f.read(), device=device)
+    refs = bench_refs(frames)
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        interpolate_frames(new_ref_frame(W1080, H1080), refs[0], refs[1], 2,
+                           1, device=device)
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    run()
+    plain_s = run()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        traced_s = run()
+    ev = [e for e in prof.key_averages() if e.device_time_total > 0]
+    busy_s = sum(e.device_time_total for e in ev) / 1e6
+    top = sorted(ev, key=lambda e: -e.device_time_total)[:5]
+    print(json.dumps({
+        "card": card_line(), "what": "interpolate_frames 1920x1088 (2, 1)",
+        "seconds": plain_s, "traced_seconds": traced_s,
+        "kernels": sum(e.count for e in ev), "device_busy_s": busy_s,
+        "idle_share_traced": 1 - busy_s / traced_s,
+        "top": [[e.key[:60], e.count, e.device_time_total / 1e6]
+                for e in top]}))
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--time-mc", metavar="DIR",
                     help="time the MC wrappers of the checkout at DIR and "
                     "run nothing else")
+    ap.add_argument("--profile-tempinterp", action="store_true",
+                    help="trace one 1080p temporal interpolation and run "
+                    "nothing else")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -575,6 +775,8 @@ def main():
         return 1
     if args.time_mc:
         return time_mc(args.time_mc)
+    if args.profile_tempinterp:
+        return profile_tempinterp()
     sys.path.insert(0, REPO)
     card = card_line()
     print(card, flush=True)
@@ -589,30 +791,44 @@ def main():
 
     rand = phase_kernels(device, card)
     phase_goldens(device)
-    launches, real = phase_main_path(device, card)
+    launches, real, frames = phase_main_path(device, card)
     res = phase_real_cells(device, card, real, rand)
+    tile_launches, tiles = phase_tiles(device, card)
+    phase_tempinterp(device, card, frames)
 
+    # each kernel's headline numbers are taken on the cells of a path that
+    # launches it: frame 1 of the bench decode for the luma and the U+V
+    # kernel, the CIF tile pipeline for the one-plane chroma kernel; the
+    # other cell sets stand beside them
+    keys = ("ms", "kernel_ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "share", "bytes", "copy_ms")
+    big, cif = tiles[f"5 tiles {W1080}x{H1080}"], tiles["5 tiles CIF"]
     kernels = []
-    for name, (source, replaces, _, on_path) in KERNELS.items():
-        r, rr = res[name]["real"], res[name]["random"]
+    for name, (source, replaces, _, need) in KERNELS.items():
+        sets = {"bench stream frame 1": res[name]["real"],
+                "random 1080p cells": res[name]["random"],
+                "tile pipeline 1080p": big[name],
+                "tile pipeline CIF": cif[name]}
+        head = ("bench stream frame 1" if need["bench_decode"]
+                else "tile pipeline CIF")
+        r = sets.pop(head)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(res[name]["errs"] + [rr["max_abs_err"]]),
+            "replaces": replaces,
+            "launches": launches[name] + tile_launches[name],
+            "launches_by_path": {"bench_decode": launches[name],
+                                 "tile_pipeline": tile_launches[name]},
+            "max_abs_err": max(res[name]["errs"] +
+                               [x["max_abs_err"] for x in sets.values()] +
+                               [r["max_abs_err"]]),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "bound_us": r["bound_ms"] * 1e3,
             "share": r["share"], "call_ms": r["call_ms"],
             "kernel_ms": r["kernel_ms"], "copy_ms": r["copy_ms"],
-            "bytes": r["bytes"], "cells": "bench stream frame 1",
-            "random": {k: rr[k] for k in ("ms", "kernel_ms", "plain_ms",
-                                          "bound_ms", "share", "bytes",
-                                          "copy_ms")}})
-        if not on_path:
-            kernels[-1]["note"] = (
-                "the one-plane case of thor_mc_chroma_cells; the main path "
-                "runs only the two-plane case (mc_chroma_uv_cells), and no "
-                "path of the port calls this one yet")
+            "bytes": r["bytes"], "cells": head,
+            "other_cells": {what: {k: x[k] for k in keys}
+                            for what, x in sets.items()}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

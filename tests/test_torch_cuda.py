@@ -212,3 +212,109 @@ def test_kernels_take_only_the_main_path_cell_sizes(cuda):
         MC.mc_cells_luma(ref, *[cell] * 7, 8, 8)
     with pytest.raises(ValueError, match="2x2"):
         MC.mc_cells_chroma_uv(ref, ref, *[cell] * 6, 4, 8)
+
+
+def _tile_inputs(rng, n, Hp, Wp, tile, taps, nfrac, bitdepth, nplanes):
+    """n tiles whose windows lie inside the plane, every fraction pair
+    present; numpy arrays (refs..., oy, ox, fv, fh)."""
+    refs = [rng.integers(0, 1 << bitdepth, (Hp, Wp)).astype(np.int32)
+            for _ in range(nplanes)]
+    oy = rng.integers(0, Hp - tile - taps + 1, n).astype(np.int32)
+    ox = rng.integers(0, Wp - tile - taps + 1, n).astype(np.int32)
+    k = np.arange(n) % (nfrac * nfrac)
+    return refs + [oy, ox, (k // nfrac).astype(np.int32),
+                   (k % nfrac).astype(np.int32)]
+
+
+def _on(dev, arrays):
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bitdepth", [8, 10])
+@pytest.mark.parametrize("bipred", [0, 1, 2])
+def test_luma_tiles_on_the_card_equal_plain(cuda, bipred, bitdepth):
+    """mc_luma_tiles: one launch of the luma kernel over 16 cells a tile,
+    equal to the plain version on whole tiles (the CPU route)."""
+    rng = np.random.default_rng([1, bipred, bitdepth])
+    args = _tile_inputs(rng, 396, 416, 480, 16, 5, 4, bitdepth, 1)
+    before = MC.LUMA_LAUNCHES
+    got = MC.mc_luma_tiles(*_on(cuda, args), tile=16, bipred=bipred,
+                           bitdepth=bitdepth)
+    torch.cuda.synchronize()
+    assert MC.LUMA_LAUNCHES == before + 1
+    want = MC.mc_luma_tiles(*_on("cpu", args), tile=16, bipred=bipred,
+                            bitdepth=bitdepth)
+    assert got.shape == (396, 16, 16) and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bitdepth", [8, 10])
+def test_chroma_tiles_on_the_card_equal_plain(cuda, bitdepth):
+    """N = 396 tiles (CIF): mc_chroma_tiles launches the one-plane kernel
+    once a plane, mc_chroma_uv_tiles the U+V kernel once; both equal the
+    plain version."""
+    rng = np.random.default_rng([2, bitdepth])
+    args = _tile_inputs(rng, 396, 208, 240, 8, 3, 8, bitdepth, 2)
+    refu, refv, *meta = _on(cuda, args)
+    before = MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+    one_u = MC.mc_chroma_tiles(refu, *meta, tile=8, bitdepth=bitdepth)
+    one_v = MC.mc_chroma_tiles(refv, *meta, tile=8, bitdepth=bitdepth)
+    assert (MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES) == (before[0] + 2,
+                                                           before[1])
+    pu, pv = MC.mc_chroma_uv_tiles(refu, refv, *meta, tile=8,
+                                   bitdepth=bitdepth)
+    torch.cuda.synchronize()
+    assert (MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES) == (before[0] + 2,
+                                                           before[1] + 1)
+    cu, cv, *cmeta = _on("cpu", args)
+    for got, ref in ((one_u, cu), (one_v, cv), (pu, cu), (pv, cv)):
+        want = MC.mc_chroma_tiles(ref, *cmeta, tile=8, bitdepth=bitdepth)
+        assert got.shape == (396, 8, 8) and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("height,width,kernels", [
+    (288, 352, (1, 2, 0)),       # 396 tiles: the one-plane kernel twice
+    (64, 128, (1, 0, 1))])       # 32 tiles: the U+V kernel
+def test_tile_pipeline_on_the_card_equals_cpu(cuda, height, width, kernels):
+    from thor_tpu_torch.models import pipeline as PP
+    args, _, _ = PP.make_example_full(height, width, 32, seed=4)
+    kw = dict(height=height, width=width, qp=32, clpf_strengths=(2, 1, 4))
+    before = MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+    got = PP.decode_p_frame_420(*args, device=cuda, **kw)
+    torch.cuda.synchronize()
+    after = MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+    assert tuple(a - b for a, b in zip(after, before)) == kernels
+    want = PP.decode_p_frame_420(*args, device="cpu", **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ratio,pos", [(2, 1), (4, 3)])
+def test_interpolate_frames_on_the_card_equals_cpu(cuda, ratio, pos):
+    """128x96: two pyramid levels; (4, 3) swaps the references."""
+    from thor_tpu_torch.frame import new_ref_frame
+    from thor_tpu_torch.ops.tempinterp import interpolate_frames
+    rng = np.random.default_rng([3, ratio, pos])
+    w, h = 128, 96
+    base = np.clip(np.linspace(20, 235, w)[None, :] +
+                   np.linspace(0, 40, h)[:, None] +
+                   rng.integers(-12, 12, (h, w)), 0, 255)
+    refs = []
+    for shift in (0, 5):
+        f = new_ref_frame(w, h)
+        f.y[:, :] = np.roll(base, shift, axis=1).astype(f.dtype)
+        f.u[:, :] = rng.integers(0, 256, (h // 2, w // 2)).astype(f.dtype)
+        f.v[:, :] = rng.integers(0, 256, (h // 2, w // 2)).astype(f.dtype)
+        f.pad_frame()
+        refs.append(f)
+    outs = []
+    for dev in (cuda, "cpu"):
+        out = new_ref_frame(w, h)
+        interpolate_frames(out, refs[0], refs[1], ratio, pos, device=dev)
+        outs.append(out)
+    for plane in ("y_full", "u_full", "v_full"):
+        np.testing.assert_array_equal(getattr(outs[0], plane),
+                                      getattr(outs[1], plane), plane)

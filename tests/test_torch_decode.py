@@ -61,23 +61,42 @@ def test_more_goldens(name):
     _check(name)
 
 
+@pytest.mark.parametrize("name", [
+    "hdb9_128", "ir2_128", "ra9_256", "s17_RA_medium_complexity",
+    "s17_HDB16_low_complexity"])
+def test_interp_ref_goldens(name):
+    """B-frame streams (HDB and RA) whose frames predict from a
+    temporally interpolated reference: interp_ref 1, and 2 (ir2_128,
+    which also stores the MVs for the temporal candidates)."""
+    _check(name)
+
+
+def test_qmtx_golden():
+    """Weighted dequantization (qmtx=1)."""
+    _check("small256_LDB_qm_medium_complexity")
+
+
 @pytest.mark.parametrize("name,why", [
     ("c444_128", "subsample=466"),
-    ("hdb9_128", "interp_ref=1"),
+    ("s17_hbd10", "tb-split intra"),
     ("small256_LDB_high_efficiency", "tb-split intra")])
 def test_refuses_streams_outside_the_slice(name, why):
+    """What the port still cannot decode raises, naming the ROADMAP item
+    that will port it (item 7, the decoder's unfused fallbacks)."""
     PDF.RUNS = 0
-    with pytest.raises(NotImplementedError, match=why):
+    with pytest.raises(NotImplementedError, match=why) as e:
         decode_stream(_read(name + ".bit"), device="cpu")
+    assert "Queue 1, item 7" in str(e.value)
     if why != "tb-split intra":
         assert PDF.RUNS == 0
 
 
 def test_package_never_imports_jax():
-    """No import of jax or thor_tpu, no loader alias of thor_tpu's files
-    and no path built onto the thor_tpu directory."""
-    pat = re.compile(r"^\s*(import|from)\s+(jax|thor_tpu)\b|_thor_tpu_host"
-                     r"|[\"']thor_tpu[\"']|join\([^)]*[\"']thor_tpu/", re.M)
+    """No import of jax, thor_tpu or bench.py, no loader alias of
+    thor_tpu's files and no path built onto the thor_tpu directory."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|thor_tpu|bench)\b"
+                     r"|_thor_tpu_host|[\"']thor_tpu[\"']"
+                     r"|join\([^)]*[\"']thor_tpu/", re.M)
     srcs = glob.glob(os.path.join(REPO, "thor_tpu_torch", "**", "*.py"),
                      recursive=True)
     assert srcs
@@ -87,16 +106,19 @@ def test_package_never_imports_jax():
 
 
 def test_decodes_without_jax(tmp_path):
-    """A process where `import jax` fails decodes tiny64_ldblc exactly,
-    never loads the real thor_tpu package nor any file under thor_tpu/
-    (no `_thor_tpu_host` alias either), and builds its C host tier from
+    """A process where `import jax` fails decodes tiny64_ldblc and
+    ir2_128 (temporal interpolation) exactly, imports the tile pipeline,
+    its entry and the qmtx tables, never loads the real thor_tpu package
+    nor any file under thor_tpu/ (no `_thor_tpu_host` alias either), and
+    builds its C host tier from
     thor_tpu_torch/_native."""
     code = (
         "import os, sys, hashlib\n"
         "sys.modules['jax'] = None\n"
-        "import thor_tpu_torch\n"
-        "_, fr = thor_tpu_torch.decode_stream(open(sys.argv[1], 'rb')"
-        ".read(), device='cpu')\n"
+        "import thor_tpu_torch, thor_tpu_torch.entry, thor_tpu_torch.qmtx\n"
+        "import thor_tpu_torch.models.pipeline\n"
+        "fr = [b''.join(thor_tpu_torch.decode_stream(open(p, 'rb').read(),"
+        " device='cpu')[1]) for p in sys.argv[1:]]\n"
         "ref = os.path.join(os.getcwd(), 'thor_tpu') + os.sep\n"
         "bad = [m for m, mod in list(sys.modules.items()) if m == 'thor_tpu'"
         " or m.startswith(('thor_tpu.', 'jax.', '_thor_tpu_host'))"
@@ -104,15 +126,16 @@ def test_decodes_without_jax(tmp_path):
         "from thor_tpu_torch import _native\n"
         "port = os.path.join(os.getcwd(), 'thor_tpu_torch', '_native')\n"
         "bad += [s for s in _native._SRCS if os.path.dirname(s) != port]\n"
-        "print(hashlib.sha256(b''.join(fr)).hexdigest(), bad)\n")
+        "print(*[hashlib.sha256(f).hexdigest() for f in fr], bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    r = subprocess.run([sys.executable, "-c", code,
-                        os.path.join(GOLDEN, "tiny64_ldblc.bit")],
+    names = ("tiny64_ldblc", "ir2_128")
+    r = subprocess.run([sys.executable, "-c", code] +
+                       [os.path.join(GOLDEN, n + ".bit") for n in names],
                        capture_output=True, text=True, cwd=REPO, env=env,
                        timeout=600)
     assert r.returncode == 0, r.stderr
-    want = hashlib.sha256(_read("tiny64_ldblc_rec.yuv")).hexdigest()
-    assert r.stdout.split() == [want, "[]"]
+    want = [hashlib.sha256(_read(n + "_rec.yuv")).hexdigest() for n in names]
+    assert r.stdout.split() == want + ["[]"]
 
 
 def test_cli_dec(tmp_path):
@@ -128,6 +151,16 @@ def test_cli_dec(tmp_path):
     with open(os.path.join(GOLDEN, "stdout", "tiny64_ldblc_dec.txt")) as f:
         assert r.stdout == f.read()
     assert out.read_bytes() == _read("tiny64_ldblc_rec.yuv")
+
+
+def test_smoke_keeps_the_bench_stream_and_its_hash():
+    """chip_smoke.py holds the bench stream's path and sha256 itself (it
+    imports nothing of bench.py); both equal bench.py's."""
+    sys.path.insert(0, REPO)
+    import bench
+    import chip_smoke
+    assert chip_smoke.BENCH_REC_SHA256 == bench.REC_SHA256
+    assert os.path.samefile(chip_smoke.BENCH_STREAM, bench.STREAM)
 
 
 @pytest.mark.slow

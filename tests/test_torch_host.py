@@ -65,7 +65,8 @@ def test_table_functions_equal_thor_tpu():
 @pytest.mark.parametrize("name", [
     "_native/entropy.c", "_native/blockparse.c", "_native/thor_native.h",
     "bitstream.py", "frame.py", "io_y4m.py", "spec/__init__.py",
-    "spec/inter.py", "spec/filters.py", "dec/native_parse.py"])
+    "spec/inter.py", "spec/filters.py", "spec/tempinterp.py",
+    "dec/native_parse.py", "qmtx.py", "qm_tables.npz"])
 def test_copies_equal_thor_tpu(name):
     """The files the port copies verbatim are byte-equal to thor_tpu's
     (tables.py, the loader, decoder.py and cli.py differ by design and

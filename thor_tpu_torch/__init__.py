@@ -10,12 +10,15 @@ CUDA card unless the caller asks for the CPU (`device="cpu"`).
 Layout:
 - tables.py: the normative tables, and the same as device tensors
   (to_device)
-- bitstream.py, frame.py, io_y4m.py, spec/, _native/, dec/native_parse.py,
-  dec/decoder.py, cli.py: the host tier, copied from thor_tpu (what the
-  decode runs of it)
+- bitstream.py, frame.py, io_y4m.py, qmtx.py (with qm_tables.npz), spec/,
+  _native/, dec/native_parse.py, dec/decoder.py, cli.py: the host tier,
+  copied from thor_tpu (what the decode runs of it)
 - ops/: torch functions and CUDA kernel wrappers, bit-exact with
-  thor_tpu/ops (mc.py wraps csrc/*.cu)
+  thor_tpu/ops (mc.py wraps csrc/*.cu; tempinterp.py is temporal
+  interpolation)
 - dec/: the frame decoder on the device and the decoder entry point
+- models/pipeline.py, entry.py: the decode pipeline over 16x16 inter
+  tiles and its forward step on one card
 - csrc/, kernels/: CUDA C++ sources for sm_90a and their build/binding
 """
 from .dec.decoder import decode_stream  # noqa: F401

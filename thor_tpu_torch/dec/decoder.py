@@ -9,12 +9,12 @@ state, the frame driver and `decode_stream` are copied from thor_tpu's
 decoder; the copy differs in its imports (the port's own tables, spec,
 native parser and device modules), in `Decoder.__init__` (the device path
 is always on and has no JAX backend probe), in `decode_frame` (one route:
-native parse, then the fused frame) and in `decode_stream` (the device
-argument and the slice check).  What the slice never runs is not copied:
-thor_tpu's Python syntax walk (`decode_super_mode` .. `process_block`)
-and its host-pixel and JAX loop filters (ROADMAP.md Queue 1, item 7),
-temporal interpolation and its MV store (item 8), and the qmtx matrices
-(item 6a).  Where a stream would need one of them, a NotImplementedError
+native parse, then the fused frame; temporal interpolation has one route
+too, ops/tempinterp.py on the decoder's device) and in `decode_stream`
+(the device argument and the slice check).  What the slice never runs is
+not copied: thor_tpu's Python syntax walk (`decode_super_mode` ..
+`process_block`) and its host-pixel and JAX loop filters (ROADMAP.md
+Queue 1, item 7).  Where a stream would need them, a NotImplementedError
 names the item, so that it fails loudly instead of decoding on another
 path.
 """
@@ -27,8 +27,11 @@ import torch
 
 from ..bitstream import BitReader, FrameUnitReader
 from ..frame import YuvFrame, new_ref_frame
-from ..tables import MAX_REF_FRAMES, MAX_REORDER_BUFFER
+from ..tables import MAX_REF_FRAMES, MAX_REORDER_BUFFER, log2i
+from ..qmtx import get_iwmatrices
 from ..spec import inter, filters
+from ..spec.tempinterp import store_mv
+from ..ops.tempinterp import interpolate_frames
 from .device_frame import DeviceFrameDecoder
 from . import device_pixels as DP
 from . import native_parse as NP
@@ -193,8 +196,7 @@ class Decoder:
         self.cdef_damping = 3
         self.cdef_bits = 0
         self.cdef_presets = []
-        if h.qmtx:
-            _not_ported("qmtx (weighted dequantization)", "6a, qmtx")
+        self.iwmatrix = get_iwmatrices() if h.qmtx else None
         self.rec: YuvFrame | None = None
         self.sub = 1 if h.subsample == 420 else 0
         self.mono = h.subsample == 400
@@ -237,7 +239,23 @@ class Decoder:
         self.rec.frame_num = fi.display_frame_num
 
         if fi.num_ref > 2 and fi.ref_array[0] == -1:
-            _not_ported("temporal interpolation", "8, Temporal interpolation")
+            # temporal interpolation reads host reference pixels:
+            # resolve any in-flight fused frame first
+            self.flush_pixels()
+            ref1 = self.ref[fi.ref_array[1]]
+            ref2 = self.ref[fi.ref_array[2]]
+            dfn = fi.display_frame_num
+            off1 = ref2.frame_num - dfn
+            off2 = dfn - ref1.frame_num
+            if off1 < 0 and off2 < 0:
+                off1, off2 = -off1, -off2
+            if off1 == off2:
+                off1 = off2 = 1
+            interpolate_frames(self.interp_frames[0], ref1, ref2,
+                               off1 + off2, off2,
+                               device=self._device_frame.device)
+            self.interp_frames[0].pad_frame()
+            self.interp_frames[0].frame_num = dfn
 
         # decode_frame.c:115-116
         self.bc.frame_header[self.stat_frame_type] += s.bitcnt - bit_start
@@ -262,9 +280,14 @@ class Decoder:
                         "buffers overflowed)", "7, Decoder fallbacks")
         blks = native_res[0]
         self._device_frame.eligible(self, blks)
-        # qp threading happens before the filter-stage stream reads, as
-        # in the Python path
+        # qp threading + temporal MV store happen before the filter-stage
+        # stream reads, as in the Python path
         fi.qp = fi.qpb
+        if h.interp_ref > 1:
+            gop = h.num_reorder_pics + 1
+            coded_phase = (fi.decode_order_frame_num + gop - 2) % gop + 1
+            store_mv(self.dd, self.width, self.height, log2i(coded_phase),
+                     self.stat_frame_type, fi.display_frame_num, gop)
         self._device_frame.run(self, s, blks, plan, refs)
 
         # reference sliding window; when the fused frame is still in
@@ -325,14 +348,11 @@ def resolve_device(device=None) -> torch.device:
 
 def check_slice(header):
     """Raise NotImplementedError for a stream outside the ported slice."""
-    if (header.subsample != 420 or header.cfl_inter or header.qmtx
-            or header.interp_ref):
+    if header.subsample != 420 or header.cfl_inter:
         _not_ported(
-            "this stream (subsample=%d cfl_inter=%d qmtx=%d interp_ref=%d;"
-            " the port decodes 4:2:0 with cfl_inter=0, qmtx=0 and "
-            "interp_ref=0)" % (header.subsample, header.cfl_inter,
-                               header.qmtx, header.interp_ref),
-            "6a, 7 and 8: qmtx, Decoder fallbacks, Temporal interpolation")
+            "this stream (subsample=%d cfl_inter=%d; the port decodes 4:2:0 "
+            "with cfl_inter=0)" % (header.subsample, header.cfl_inter),
+            "7, Decoder fallbacks")
 
 
 def decode_stream(data: bytes, progress=None, device=None):

@@ -7,7 +7,8 @@ ops/mc.py), the intra wave scan with chroma-from-luma, then the in-loop
 filters (deblock -> CDEF -> CLPF), display packing and reference edge
 padding.  The host uploads the parsed plan and pulls one packed display
 buffer.  Scope as in JAX, narrowed to the slice the port carries: 4:2:0,
-no cfl_inter, no qmtx, no tb-split intra (`eligible` raises on the rest).
+no cfl_inter, no tb-split intra (`eligible` raises on the rest); qmtx
+streams dequantize with their weight matrices (`pixel_core`'s `qm`).
 
 The host helpers (`LY_KEYS`, `CH_KEYS`, `SEG_BUCKETS`, `INTRA_SIZES`,
 `_bucket`, `build_wave_segments`) are verbatim copies of
@@ -256,26 +257,34 @@ def _up(m, k: int):
 
 def pixel_core(ystack, ustack, vstack, gstack, cstack, coef_y, coef_uv,
                q4y, q4c, segs, segcls, H: int, W: int, bd: int, pad: int,
-               pad_c: int, has_inter: bool, has_avg: bool, cfl: bool):
+               pad_c: int, has_inter: bool, has_avg: bool, cfl: bool,
+               qm=None):
     """Residuals + inter MC + intra scan for one frame.
 
     ystack/ustack/vstack [R,Hp,Wp] int16 padded reference planes;
     gstack [14, gh*gw] luma plan grids; cstack [12, gh*gw] chroma grids +
     avg + inter; coef_y [hp,wp] int16; coef_uv [2,hc,wc]; q4y/q4c
     [2,*,*] (qp4, ls4); segs [S,LANES,7] + segcls [S] host arrays
-    (build_wave_segments).  Returns unfiltered (y, u, v) int32 planes."""
+    (build_wave_segments); qm, for a qmtx stream, the weight slots and
+    banks of DP.build_qm_operands as tensors: {"wsel_y", "wsel_c", "y",
+    "u", "v"}.  Returns unfiltered (y, u, v) int32 planes."""
     gh, gw = H // 4, W // 4
     H2, W2 = H // 2, W // 2
     maxv = (1 << bd) - 1
     dev = coef_y.device
 
     # ---- dense residuals for ALL TBs ----
+    qm = qm or {}
+    wsy, wsc = qm.get("wsel_y"), qm.get("wsel_c")
     res_y = DP._dense_residual(coef_y, q4y[0], q4y[1], bd,
-                               (4, 8, 16, 32, 64, 128))[:H, :W]
+                               (4, 8, 16, 32, 64, 128), wsy,
+                               qm.get("y"))[:H, :W]
     res_u = DP._dense_residual(coef_uv[0], q4c[0], q4c[1], bd,
-                               (4, 8, 16, 32, 64))[:H2, :W2]
+                               (4, 8, 16, 32, 64), wsc,
+                               qm.get("u"))[:H2, :W2]
     res_v = DP._dense_residual(coef_uv[1], q4c[0], q4c[1], bd,
-                               (4, 8, 16, 32, 64))[:H2, :W2]
+                               (4, 8, 16, 32, 64), wsc,
+                               qm.get("v"))[:H2, :W2]
 
     # ---- inter MC + reconstruct into base planes ----
     if has_inter:
@@ -481,17 +490,17 @@ class DeviceFrameDecoder:
         """True for every frame of the slice; raises on the rest, which
         the decoder would otherwise send to its unported fallbacks."""
         h = dec.h
-        if h.subsample != 420 or h.cfl_inter or h.qmtx:
+        if h.subsample != 420 or h.cfl_inter:
             raise NotImplementedError(
-                "only 4:2:0 without cfl_inter or qmtx is ported "
-                "(ROADMAP.md Queue 1, 'Decoder fallbacks')")
+                "only 4:2:0 without cfl_inter is ported "
+                "(ROADMAP.md Queue 1, item 7, 'Decoder fallbacks')")
         if len(blks) == 0:
             raise NotImplementedError("a frame without block records")
         intra = blks[:, NP.B_MODE] == MODE_INTRA
         if (intra & (blks[:, NP.B_TBSPLIT] > 0)).any():
             raise NotImplementedError(
                 "tb-split intra is not ported (device_pixels.execute, "
-                "ROADMAP.md Queue 1, 'Decoder fallbacks')")
+                "ROADMAP.md Queue 1, item 7, 'Decoder fallbacks')")
         return True
 
     def run(self, dec, s, blks, plan, refs):
@@ -587,12 +596,19 @@ class DeviceFrameDecoder:
         q4c = np.stack([plan.qp4["c"], plan.ls4["c"]])
         coef_uv = np.stack([plan.coef["u"], plan.coef["v"]])
 
+        qm = None
+        if h.qmtx:
+            wsel_y, wsel_c, banks = DP.build_qm_operands(dec, plan, blks)
+            qm = {"wsel_y": up(wsel_y), "wsel_c": up(wsel_c)}
+            for k in ("y", "u", "v"):
+                qm[k] = {sz: up(b) for sz, b in banks[k].items()}
+
         yf, uf, vf = pixel_core(
             ystack, ustack, vstack, up(gstack), up(cstack),
             up(plan.coef["y"]), up(coef_uv), up(q4y), up(q4c), segs,
             segcls, H=H, W=W, bd=bd, pad=PADDING, pad_c=PADDING >> 1,
             has_inter=has_inter, has_avg=bool(plan.avg.any()),
-            cfl=bool(h.cfl_intra))
+            cfl=bool(h.cfl_intra), qm=qm)
         packed, ry, ru, rv = filter_pack(
             yf, uf, vf, up(mv_), up(mh_), up(cmv), up(cmh), up(lv0),
             up(sec0), up(m0), up(lv1), up(sec1), up(m1), up(m2),

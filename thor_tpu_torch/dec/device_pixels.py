@@ -2,9 +2,10 @@
 thor_tpu/dec/device_pixels.py).
 
 The host helpers below (`_clip_mv`, `_plan_luma`, `_plan_chroma`,
-`_pad_to`, `FramePlan`) are verbatim copies of thor_tpu/dec/device_pixels.py
-:43-187: the original module imports JAX at the top, and the port's
-decoder builds its `FramePlan` from this module.  The device functions
+`_pad_to`, `FramePlan`) and `build_qm_operands` with `QM_SLOTS` are
+verbatim copies of thor_tpu/dec/device_pixels.py:43-187 and :464-516: the
+original module imports JAX at the top, and the port's decoder builds its
+`FramePlan` and its qmtx operands from this module.  The device functions
 are torch: dequantization with the inverse transform, and motion
 compensation over cells through the CUDA kernels of ops/mc.py.
 """
@@ -196,14 +197,44 @@ def residual_batch(coeff, qp, size: int, bitdepth: int):
     return inv_transform_batch(full, size, bitdepth)
 
 
-def _dense_residual(coefp, qp4, ls4, bd: int, sizes):
+def residual_batch_w(coeff, qp, iw, size: int, bitdepth: int):
+    """Weight-matrix dequantize (common/common_block.c:45-73 with
+    iwmatrix) + inverse transform.  coeff [N,qs,qs] integer, qp [N]
+    integer, iw [N,qs,qs] inverse weights (INV_WEIGHT_SHIFT-scaled).
+    coeff*iw*scale can pass 2^31, so the product runs in int64; the
+    result wraps to int16.  Returns [N,size,size] int32."""
+    qs = min(size, 16)
+    qp = qp.to(torch.int64)
+    lshift = torch.div(qp, 6, rounding_mode="floor")
+    rshift = log2i(size) - 1 + tables.INV_WEIGHT_SHIFT
+    scale = to_device(coeff.device)["gdequant"][qp % 6].to(torch.int64)
+    c = (coeff.to(torch.int64) * iw.to(torch.int64) *
+         scale[:, None, None])
+    le = (lshift >= rshift)[:, None, None]
+    dl = (lshift - rshift).clamp(min=0)[:, None, None]
+    dr = (rshift - lshift).clamp(min=0)[:, None, None]
+    add = torch.where(dr > 0, 1 << (dr - 1).clamp(min=0),
+                      torch.zeros_like(dr))
+    r = _i16(torch.where(le, c << dl, (c + add) >> dr))   # int16 wrap
+    full = torch.zeros((coeff.shape[0], size, size), dtype=torch.int32,
+                       device=coeff.device)
+    full[:, :qs, :qs] = r.to(torch.int32)
+    return inv_transform_batch(full, size, bitdepth)
+
+
+def _dense_residual(coefp, qp4, ls4, bd: int, sizes, wsel4=None,
+                    wbank=None):
     """Inverse-transform every TB of a plane with static shapes.
 
     coefp [hp,wp] int16 dense coefficient plane (hp/wp multiples of the
     largest size); qp4/ls4 [hp/4,wp/4].  As in the JAX version, each size
     transforms the whole tiled plane and the tiles whose log2-size matches
     are kept; this port keeps that form so that it equals the reference
-    on every input (qmtx planes are not ported)."""
+    on every input.
+
+    qmtx streams pass wsel4 [hp/4,wp/4] (per-4x4 weight slot) and wbank
+    {size: [L,qs,qs]} inverse-weight banks (build_qm_operands); slots
+    select the (qlevel, intra) matrix for each TB."""
     hp, wp = coefp.shape
     res = torch.zeros((hp, wp), dtype=torch.int32, device=coefp.device)
     for s in sizes:
@@ -214,9 +245,68 @@ def _dense_residual(coefp, qp4, ls4, bd: int, sizes):
         t = (coefp.reshape(nh, s, nw, s)[:, :qs, :, :qs]
              .permute(0, 2, 1, 3).reshape(nh * nw, qs, qs))
         qp_t = qp4[::s // 4, ::s // 4].reshape(-1)
-        r = residual_batch(t, qp_t, s, bd)
+        if wsel4 is None:
+            r = residual_batch(t, qp_t, s, bd)
+        else:
+            iw_t = wbank[s][wsel4[::s // 4, ::s // 4].reshape(-1).long()]
+            r = residual_batch_w(t, qp_t, iw_t, s, bd)
         pl = r.reshape(nh, nw, s, s).permute(0, 2, 1, 3).reshape(hp, wp)
         m = ls4[::s // 4, ::s // 4] == log2i(s)
         pm = m.repeat_interleave(s, 0).repeat_interleave(s, 1)
         res = torch.where(pm, pl, res)
     return res
+
+
+QM_SLOTS = 24      # weight slots: NUM_QM_LEVELS x {intra,inter} covers
+                   # every possible frame, so the bank shape is static
+
+
+def build_qm_operands(dec, plan, blks):
+    """Host-side qmtx operands for the dense residual path.
+
+    Returns (wsel_y [gh,gw], wsel_c [gh/2,gw/2], banks) where banks maps
+    plane -> {size: [QM_SLOTS,qs,qs] int32}.  The qlevel follows each
+    BLOCK's luma qp (decode_block derives ql from qpY once for all
+    planes, dec/decoder.py:731) - taken from the parsed block records,
+    since the qp4 grid is only filled at coded TBs (a chroma TB under a
+    cbp_y=0 luma block would otherwise read qp 0).  intra/inter selects
+    the matrix flavour per cell."""
+    from ..tables import qp_to_qlevel
+    from . import native_parse as NP
+    h = dec.h
+    qp4y = plan.qp4["y"]
+    gh, gw = qp4y.shape        # padded coef-plane geometry
+    qpd = np.zeros((gh, gw), np.int32)
+    intra4 = np.ones((gh, gw), np.int32)
+    for r in blks:
+        y, x = int(r[NP.B_YPOS]) // 4, int(r[NP.B_XPOS]) // 4
+        s4 = int(r[NP.B_SIZE]) // 4
+        qpd[y:y + s4, x:x + s4] = int(r[NP.B_QPY])
+        intra4[y:y + s4, x:x + s4] = int(r[NP.B_MODE]) == 1  # MODE_INTRA
+    qls = np.zeros_like(qpd)
+    for q in np.unique(qpd):
+        qls[qpd == q] = qp_to_qlevel(int(q), h.qmtx_offset)
+    # slot = pair index over the distinct (qlevel, intra) combos present
+    pairs = sorted({(int(a), int(b))
+                    for a, b in zip(qls.reshape(-1), intra4.reshape(-1))})
+    slot_of = {p: i for i, p in enumerate(pairs)}
+    wsel_y = np.zeros((gh, gw), np.int32)
+    for p, i in slot_of.items():
+        wsel_y[(qls == p[0]) & (intra4 == p[1])] = i
+    wsel_c = wsel_y[::2, ::2].copy()
+    banks = {}
+    for plane, key in ((0, "y"), (1, "u"), (2, "v")):
+        per = {}
+        for s in (4, 8, 16, 32, 64, 128):
+            qs = min(s, 16)
+            bank = np.zeros((QM_SLOTS, qs, qs), np.int32)
+            for (ql, intra_f), i in slot_of.items():
+                # reference quirk: intra chroma dequant uses the U-plane
+                # matrix for BOTH chroma planes (dec/decode_block.c:255,
+                # decoder.py:802 iwm(1,1)); inter is per-plane
+                pl = 1 if (plane == 2 and intra_f) else plane
+                bank[i] = dec.iwmatrix[ql][pl][intra_f][
+                    log2i(s) - 2].astype(np.int32)
+            per[s] = bank
+        banks[key] = per
+    return wsel_y, wsel_c, banks

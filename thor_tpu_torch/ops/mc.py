@@ -11,6 +11,12 @@ There is no other route: a CUDA tensor gets the kernel or an exception.
 The kernels take the cell sizes of the decoder's main path, 4x4 luma and
 2x2 chroma; the wrappers raise for another size on CUDA.
 
+`mc_luma_tiles`, `mc_chroma_tiles` and `mc_chroma_uv_tiles` keep the
+contract of thor_tpu/ops/mc.py and of the Pallas wrappers (one window
+origin and one fraction per tile, as models/pipeline.py calls them): on
+CUDA they expand each tile into the kernels' cells and launch the luma,
+the one-plane chroma or the U+V kernel once.
+
 Indices follow JAX's gather: a negative index counts from the end and
 every index is then clamped into range (`_jidx`), so both versions equal
 the XLA gathers on any input.
@@ -202,3 +208,118 @@ def mc_cells_chroma_uv(u_stack, v_stack, rsel, y0, x0, op, vf, hf, cs: int,
                      for s in (u_stack, v_stack))
     return tuple(_chroma_kernel(u_stack, v_stack, rsel, y0, x0, op, vf, hf,
                                 cs, bitdepth))
+
+
+# ---------------------------------------------------------------------------
+# tiles: one window origin and one fraction per tile x tile block
+# (thor_tpu/ops/mc.py:mc_luma_tiles/mc_chroma_tiles and the Pallas
+# wrappers of thor_tpu/ops/mc_pallas.py)
+# ---------------------------------------------------------------------------
+
+def _tile_ops(frac_v, frac_h, bipred):
+    """(op, fs) of each tile, chosen as dec/device_pixels.py:_plan_luma
+    chooses a cell's: a copy at fraction (0,0) (tap row 0 of every bank
+    is the unit tap), the centre lowpass at (2,2) unless bipred is 2,
+    else the separable filter with the bipred bank when bipred is set.
+    For chroma `bipred` is None: no lowpass and no filter set."""
+    op = torch.full_like(frac_v, OP_SIXTAP)
+    if bipred is not None and bipred < 2:
+        op = torch.where((frac_v == 2) & (frac_h == 2), OP_LOWPASS, op)
+    op = torch.where((frac_v == 0) & (frac_h == 0), OP_COPY, op)
+    return op, torch.full_like(frac_v, 1 if bipred else 0)
+
+
+def _tiles_to_cells(oy, ox, per_tile, tile: int, cs: int, back: int):
+    """Expands N tiles into N * (tile/cs)^2 cells of cs x cs, origins
+    advancing with the cell as FramePlan.fill_luma lays them out.  oy/ox
+    are window origins (`back` samples before the block), the cells'
+    y0/x0 block origins.  Returns (y0, x0, per-tile arrays repeated per
+    cell), contiguous int32."""
+    if tile % cs:
+        raise ValueError(f"tile {tile} is not a multiple of the kernel's "
+                         f"{cs}x{cs} cell")
+    nc = tile // cs
+    d = torch.arange(nc, device=oy.device, dtype=torch.int32) * cs
+    n = oy.shape[0]
+    y0 = (oy.to(torch.int32)[:, None, None] + back + d[:, None]).expand(
+        n, nc, nc).reshape(-1)
+    x0 = (ox.to(torch.int32)[:, None, None] + back + d[None, :]).expand(
+        n, nc, nc).reshape(-1)
+    rep = [a.to(torch.int32).repeat_interleave(nc * nc) for a in per_tile]
+    return (y0.contiguous(), x0.contiguous(), *rep)
+
+
+def _cells_to_tiles(cells, n: int, tile: int, cs: int):
+    nc = tile // cs
+    return cells.reshape(n, nc, nc, cs, cs).permute(0, 1, 3, 2, 4).reshape(
+        n, tile, tile)
+
+
+def _stack16(ref):
+    """A [Hp,Wp] plane as the kernels' int16 [1,Hp,Wp] reference stack."""
+    return ref.to(torch.int16).contiguous()[None]
+
+
+def mc_luma_tiles(ref, oy, ox, frac_v, frac_h, tile: int = 4,
+                  bipred: int = 0, bitdepth: int = 8):
+    """MC a batch of tile x tile luma blocks (thor_tpu/ops/mc.py:
+    mc_luma_tiles, mc_pallas.py:mc_luma_tiles_pallas).
+
+    ref: padded reference plane [Hp,Wp], integer samples in
+    0..2^bitdepth-1.  oy/ox: [N] window origins = pad + block_y + ver_int
+    - 2 (top-left of the (tile+5)-wide window); every window must lie
+    inside the plane.  frac_v/frac_h: [N] in 0..3.  Returns [N,tile,tile]
+    int32.  On a CUDA tensor each tile becomes (tile/4)^2 cells of the
+    luma kernel, launched once; on a CPU tensor the plain version runs on
+    whole tiles."""
+    zero = torch.zeros_like(frac_v)
+    op, fs = _tile_ops(frac_v, frac_h, bipred)
+    if ref.device.type == "cpu":
+        return mc_cells_luma_plain(ref[None], zero, oy + 2, ox + 2, op,
+                                   frac_v, frac_h, fs, tile, bitdepth)
+    y0, x0, rsel, op, vf, hf, fs = _tiles_to_cells(
+        oy, ox, (zero, op, frac_v, frac_h, fs), tile, 4, 2)
+    out = mc_cells_luma(_stack16(ref), rsel, y0, x0, op, vf, hf, fs, 4,
+                        bitdepth)
+    return _cells_to_tiles(out, oy.shape[0], tile, 4)
+
+
+def _chroma_tile_cells(oy, ox, frac_v, frac_h, tile: int):
+    zero = torch.zeros_like(frac_v)
+    op, _ = _tile_ops(frac_v, frac_h, None)
+    y0, x0, rsel, op, vf, hf = _tiles_to_cells(
+        oy, ox, (zero, op, frac_v, frac_h), tile, 2, 1)
+    return rsel, y0, x0, op, vf, hf
+
+
+def mc_chroma_tiles(ref, oy, ox, frac_v, frac_h, tile: int = 2,
+                    bitdepth: int = 8):
+    """MC a batch of tile x tile chroma blocks of one plane (4-tap
+    eighth-pel; thor_tpu/ops/mc.py:mc_chroma_tiles, mc_pallas.py:
+    mc_chroma_tiles_pallas).  oy/ox: [N] window origins = pad_c + block_y
+    + ver_int - 1, every window inside the plane; frac_v/frac_h in 0..7.
+    Returns [N,tile,tile] int32.  On a CUDA tensor: one launch of the
+    chroma kernel's one-plane case over (tile/2)^2 cells a tile."""
+    if ref.device.type == "cpu":
+        op, _ = _tile_ops(frac_v, frac_h, None)
+        return mc_cells_chroma_plain(ref[None], torch.zeros_like(frac_v),
+                                     oy + 1, ox + 1, op, frac_v, frac_h,
+                                     tile, bitdepth)
+    cells = _chroma_tile_cells(oy, ox, frac_v, frac_h, tile)
+    out = mc_cells_chroma(_stack16(ref), *cells, 2, bitdepth)
+    return _cells_to_tiles(out, oy.shape[0], tile, 2)
+
+
+def mc_chroma_uv_tiles(ref_u, ref_v, oy, ox, frac_v, frac_h, tile: int = 2,
+                       bitdepth: int = 8):
+    """mc_chroma_tiles for U and V sharing the per-tile metadata
+    (mc_pallas.py:mc_chroma_uv_tiles_pallas): on a CUDA tensor one launch
+    of the chroma kernel's two-plane case.  Returns (pred_u, pred_v)."""
+    if ref_u.device.type == "cpu":
+        return tuple(mc_chroma_tiles(r, oy, ox, frac_v, frac_h, tile,
+                                     bitdepth) for r in (ref_u, ref_v))
+    cells = _chroma_tile_cells(oy, ox, frac_v, frac_h, tile)
+    pu, pv = mc_cells_chroma_uv(_stack16(ref_u), _stack16(ref_v), *cells, 2,
+                                bitdepth)
+    n = oy.shape[0]
+    return _cells_to_tiles(pu, n, tile, 2), _cells_to_tiles(pv, n, tile, 2)

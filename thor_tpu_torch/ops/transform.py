@@ -1,4 +1,5 @@
-"""Batched integer inverse transform (torch port of thor_tpu/ops/transform.py).
+"""Batched integer inverse transform, static-qp dequantization and
+reconstruction (torch port of thor_tpu/ops/transform.py).
 
 Bit-exact with thor_tpu/spec/transform_quant.py:transform_inv.  CUDA has no integer
 GEMM in torch, and a bf16 product rounds, so each stage is a float64
@@ -45,3 +46,34 @@ def inv_transform_batch(coeff: torch.Tensor, size: int, bitdepth: int = 8):
     out = ((_dot(tmp.transpose(1, 2), Tm) + add_2) >> shift_2).clamp(
         -32768, 32767)
     return out.to(torch.int32)
+
+
+def dequantize_batch(coeff, qp: int, size: int, iwmatrix=None,
+                     weighted: bool = False):
+    """Dequantize a batch at one static qp: [B,>=qsize,>=qsize] integer ->
+    [B,size,size] int32.  The product runs in int64 and is then wrapped to
+    int16, as thor_tpu/ops/transform.py:dequantize_batch does; with
+    `weighted`, each coefficient is first multiplied by `iwmatrix`
+    ([>=qsize,>=qsize] inverse weights, INV_WEIGHT_SHIFT-scaled)."""
+    lshift = qp // 6
+    qsize = min(size, T.MAX_QUANT_SIZE)
+    rshift = T.log2i(size) - 1 + (T.INV_WEIGHT_SHIFT if weighted else 0)
+    scale = int(T.GDEQUANT[qp % 6])
+    c = coeff[:, :qsize, :qsize].to(torch.int64)
+    if weighted:
+        c = c * iwmatrix[None, :qsize, :qsize].to(torch.int64)
+    if lshift >= rshift:
+        r = (c * scale) << (lshift - rshift)
+    else:
+        add = 1 << (rshift - lshift - 1)
+        r = (c * scale + add) >> (rshift - lshift)
+    r = _i16(r).to(torch.int32)     # the low 16 bits, sign-extended
+    out = torch.zeros((coeff.shape[0], size, size), dtype=torch.int32,
+                      device=coeff.device)
+    out[:, :qsize, :qsize] = r
+    return out
+
+
+def reconstruct_batch(res, pred, bitdepth: int = 8):
+    """saturate(res + (int16)pred) over any matching shapes."""
+    return (res + _i16(pred)).clamp(0, (1 << bitdepth) - 1)
