@@ -15,7 +15,8 @@ exit code is non-zero:
      8 and 10, both filter sets: the maximum difference must be 0 (the
      codec is integer: tolerance 0);
   2. golden streams through the port's decode_stream on the card, each
-     byte-equal to its reference YUV;
+     byte-equal to its reference YUV, with the frames each route of the
+     decoder took (fused / two-stage / host records);
   3. the main path: the 8-frame 1080p LDB-LC bench stream, whose output
      must hash to BENCH_REC_SHA256, with the MC kernels' launch counts
      and the frame decoder's run count taken over that decode alone (it
@@ -36,10 +37,21 @@ exit code is non-zero:
      plain versions on the cells those tiles expand into, and timed there;
   6. temporal interpolation at 1080p: frames 6 and 7 of phase 3's decode
      as the two references, interpolate_frames at (ratio, pos) (2, 1) and
-     (4, 1) on the card, equal to the same call on the CPU.
-Times are device times: the launches queue behind a sleeping kernel, so
-the events time the card's work and not the Python that issues it
-(`call_ms`, one call timed alone, includes that; `kernel_ms` is the
+     (4, 1) on the card, equal to the same call on the CPU;
+  7. the unfused routes at full width: the bench stream again with
+     fused=False, so that its I frame takes the host records and its P
+     frames the two-stage executor (frame_exec at 1920x1088: the luma
+     kernel once and the one-plane chroma kernel twice a frame), every
+     frame the unfused loop filters (filters_exec).  All eight frames are
+     decoded and the output must hash to BENCH_REC_SHA256; seconds per
+     frame stand beside phase 3's, with the seconds inside execute and
+     filters_exec (synchronised on both sides) and the launch counts over
+     this decode alone.  The one-plane chroma kernel is then held against
+     its plain version on the arguments frame 1's two calls gave it,
+     which must be phase 4's frame-1 cells.
+The kernels' times are device times: the launches queue behind a sleeping
+kernel, so the events time the card's work and not the Python that issues
+it (`call_ms`, one call timed alone, includes that; `kernel_ms` is the
 kernel alone in torch.profiler's trace, without the gap between queued
 launches).  The second-to-last line is a JSON object with the kernels'
 results, the last line {"ok": true, "device": {...}}.
@@ -65,7 +77,11 @@ GOLDENS = ("tiny64_ldblc", "noise_cif_ldblc", "smooth_cif_ldblc",
            "hdb9_128", "ir2_128", "ra9_256", "s17_RA_medium_complexity",
            "s17_HDB16_low_complexity",
            # weighted dequantization (qmtx)
-           "small256_LDB_qm_medium_complexity")
+           "small256_LDB_qm_medium_complexity",
+           # frames off the fused route: 4:4:4 (host records), tb-split
+           # intra (two-stage; with qmtx, host records)
+           "c444_128", "s17_hbd10", "small256_LDB_high_efficiency",
+           "he2_256")
 # the 8-frame 1920x1088 LDB low-complexity stream that bench.py decodes,
 # and the sha256 of its reference decode (tests/test_torch_decode.py holds
 # both equal to bench.py's)
@@ -80,19 +96,24 @@ OPS_PER_S = 67e12
 SRC = "thor_tpu_torch/csrc/"
 KERNELS = {   # name: (source, the Pallas call it replaces, launch counter
     #                in ops/mc.py, the launches each driven path must make:
-    #                the bench decode at least, the tile pipeline exactly)
+    #                the two bench decodes at least (none where 0), the
+    #                tile pipeline exactly)
     "mc_luma_cells": (SRC + "mc_luma.cu", "thor_tpu/ops/mc_pallas.py:164",
                       "LUMA_LAUNCHES", {"bench_decode": 1,
-                                        "tile_pipeline": 3}),
+                                        "tile_pipeline": 3,
+                                        "unfused_decode": 1}),
     "mc_chroma_uv_cells": (SRC + "mc_chroma.cu",
                            "thor_tpu/ops/mc_pallas.py:385",
                            "CHROMA_UV_LAUNCHES", {"bench_decode": 1,
-                                                  "tile_pipeline": 1}),
-    # the one-plane case of thor_mc_chroma_cells: the tile pipeline takes
-    # it when the tile count is no multiple of 16 (CIF: 396)
+                                                  "tile_pipeline": 1,
+                                                  "unfused_decode": 0}),
+    # the one-plane case of thor_mc_chroma_cells: the two-stage executor
+    # calls it once per plane and list; the tile pipeline takes it when
+    # the tile count is no multiple of 16 (CIF: 396)
     "mc_chroma_cells": (SRC + "mc_chroma.cu",
                         "thor_tpu/ops/mc_pallas.py:274", "CHROMA_LAUNCHES",
-                        {"bench_decode": 0, "tile_pipeline": 2}),
+                        {"bench_decode": 0, "tile_pipeline": 2,
+                         "unfused_decode": 1}),
 }
 
 
@@ -104,6 +125,16 @@ def reset_launches(MC):
 def read_launches(MC):
     return {name: getattr(MC, counter)
             for name, (_, _, counter, _) in KERNELS.items()}
+
+
+def check_launches(launches, path):
+    """A bench decode must launch each kernel its route runs, and none of
+    the others."""
+    for name, (_, _, _, need) in KERNELS.items():
+        if (launches[name] > 0) != (need[path] > 0):
+            raise AssertionError(
+                f"kernel {name}: {launches[name]} launches on the {path} "
+                f"path, expected {'some' if need[path] else 'none'}")
 
 
 def card_line():
@@ -398,6 +429,7 @@ def phase_kernels(device, card):
 def phase_goldens(device):
     """Phase 2: the goldens through the port, byte for byte."""
     from thor_tpu_torch import decode_stream
+    from thor_tpu_torch.dec import decoder as PD
     for name in GOLDENS:
         base = os.path.join(REPO, "tests", "golden", name)
         with open(base + ".bit", "rb") as f:
@@ -405,12 +437,16 @@ def phase_goldens(device):
         with open(base + "_rec.yuv", "rb") as f:
             golden = f.read()
         t0 = time.time()
+        PD.ROUTE_FRAMES.update(dict.fromkeys(PD.ROUTE_FRAMES, 0))
         _, frames = decode_stream(data, device=device)
         out = b"".join(frames)
         if out != golden:
             raise AssertionError(f"golden {name}: output differs")
+        if sum(PD.ROUTE_FRAMES.values()) != len(frames):
+            raise AssertionError(f"golden {name}: a frame took no route")
         print(f"phase 2: {name}: {len(frames)} frames byte-exact "
-              f"({time.time() - t0:.2f} s)", flush=True)
+              f"({time.time() - t0:.2f} s); frames by route "
+              f"{PD.ROUTE_FRAMES}", flush=True)
 
 
 def phase_main_path(device, card):
@@ -454,10 +490,7 @@ def phase_main_path(device, card):
     if runs != len(frames) or len(frames) != 8:
         raise AssertionError(f"DeviceFrameDecoder.run served {runs} of "
                              f"{len(frames)} frames")
-    for name, (_, _, _, need) in KERNELS.items():
-        if launches[name] < need["bench_decode"]:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path")
+    check_launches(launches, "bench_decode")
     steady = times[3:] if len(times) > 4 else times
     fps = len(steady) / sum(steady)
     print(f"phase 3: 1080p LDB-LC bench stream: sha256 matches its "
@@ -467,7 +500,7 @@ def phase_main_path(device, card):
           f"per-frame s {[round(t, 4) for t in times]}; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
           f"launches {launches}, runs {runs}; card {card}", flush=True)
-    return launches, pixel_core_cells(DF, seen[1]), frames
+    return launches, pixel_core_cells(DF, seen[1]), frames, times
 
 
 def capture_pixel_core(DF):
@@ -656,6 +689,114 @@ def phase_tempinterp(device, card, frames):
               f"({t_cpu:.3f} s on this host's CPU); card {card}", flush=True)
 
 
+def phase_unfused(device, card, real, fused_times):
+    """Phase 7: the bench stream through the unfused routes, beside phase
+    3's fused times; then the one-plane chroma kernel on the arguments
+    that frame 1's calls gave it."""
+    import torch
+    from thor_tpu_torch.dec import decoder as PD
+    from thor_tpu_torch.dec import device_frame as DF
+    from thor_tpu_torch.dec import device_pixels as DP
+    from thor_tpu_torch.ops import filters as OF
+    from thor_tpu_torch.ops import mc as MC
+    with open(BENCH_STREAM, "rb") as f:
+        data = f.read()
+    times, inner, chroma_calls = [], {"execute": [], "filters_exec": []}, []
+    orig = (PD.Decoder.decode_frame, DP.execute, OF.filters_exec,
+            DP.mc_cells_chroma)
+
+    def timed(self, s, n):
+        t0 = time.time()
+        r = orig[0](self, s, n)
+        times.append(time.time() - t0)
+        return r
+
+    def synced(fn, key):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            r = fn(*args, **kw)
+            torch.cuda.synchronize()
+            inner[key].append(time.time() - t0)
+            return r
+        return run
+
+    def chroma(*args):
+        if len(times) == 1:     # frame 1: the U call, then the V call
+            chroma_calls.append(args)
+        return orig[3](*args)
+
+    torch.cuda.synchronize()
+    reset_launches(MC)
+    DF.RUNS = 0
+    PD.ROUTE_FRAMES.update(dict.fromkeys(PD.ROUTE_FRAMES, 0))
+    PD.Decoder.decode_frame = timed
+    DP.execute = synced(orig[1], "execute")
+    OF.filters_exec = synced(orig[2], "filters_exec")
+    DP.mc_cells_chroma = chroma
+    t0 = time.time()
+    try:
+        _, frames = PD.decode_stream(data, device=device, fused=False)
+    finally:
+        (PD.Decoder.decode_frame, DP.execute, OF.filters_exec,
+         DP.mc_cells_chroma) = orig
+    wall = time.time() - t0
+    launches = read_launches(MC)
+    routes = dict(PD.ROUTE_FRAMES)
+    digest = hashlib.sha256(b"".join(frames)).hexdigest()
+    if digest != BENCH_REC_SHA256:
+        raise AssertionError(f"1080p output through the unfused routes: "
+                             f"sha256 {digest} != {BENCH_REC_SHA256}")
+    if DF.RUNS or routes != {"fused": 0, "two_stage": 7, "host_records": 1,
+                             "python_walk": 0}:
+        raise AssertionError(f"fused=False: routes {routes}, fused runs "
+                             f"{DF.RUNS}")
+    check_launches(launches, "unfused_decode")
+    r4 = [round(t, 4) for t in times]
+    print(f"phase 7: 1080p LDB-LC bench stream with fused=False: all "
+          f"{len(frames)} frames decoded, sha256 matches; frames by route "
+          f"{routes}; per-frame s {r4} (fused, phase 3: "
+          f"{[round(t, 4) for t in fused_times]}); P frames mean "
+          f"{statistics.mean(times[1:]):.4f} s against fused "
+          f"{statistics.mean(fused_times[1:]):.4f} s, I frame "
+          f"{times[0]:.4f} s against {fused_times[0]:.4f} s; whole stream "
+          f"{wall:.3f} s; inside execute "
+          f"{[round(t, 4) for t in inner['execute']]} s, inside "
+          f"filters_exec {[round(t, 4) for t in inner['filters_exec']]} s "
+          f"(synchronised on both sides); launches {launches}; card {card}",
+          flush=True)
+
+    # the one-plane kernel on its real-stream arguments
+    if len(chroma_calls) != 2:
+        raise AssertionError(f"frame 1 made {len(chroma_calls)} one-plane "
+                             f"chroma calls, expected 2")
+    before = read_launches(MC)["mc_chroma_cells"]
+    errs = []
+    for plane, args in zip("uv", chroma_calls):
+        stack, cells = args[0], dict(zip(("rsel", "y0", "x0", "op", "vf",
+                                          "hf"), args[1:7]))
+        same = (torch.equal(stack, real["planes"]["uv".index(plane) + 1])
+                and all(torch.equal(cells[k], real["cc"][k]) for k in cells))
+        if not same or args[7:] != (2, real["bd"]):
+            raise AssertionError(f"frame 1's {plane} call of the one-plane "
+                                 f"kernel differs from phase 4's cells")
+        got = MC.mc_cells_chroma(*args)
+        torch.cuda.synchronize()
+        errs.append(max_err(got, MC.mc_cells_chroma_plain(*args)))
+    if read_launches(MC)["mc_chroma_cells"] != before + 2:
+        raise AssertionError("the one-plane wrapper did not launch")
+    print(f"phase 7: mc_chroma_cells against its plain version on frame "
+          f"1's u and v calls ({chroma_calls[0][2].shape[0]} cells, the "
+          f"cells phase 4 timed): max_abs_err {errs}", flush=True)
+    if max(errs) != 0:
+        raise AssertionError("mc_chroma_cells disagrees with its plain "
+                             "version on the two-stage executor's cells")
+    return launches, max(errs), {
+        "per_frame_s": times, "fused_per_frame_s": fused_times,
+        "execute_s": inner["execute"],
+        "filters_exec_s": inner["filters_exec"]}
+
+
 class _Captured(Exception):
     pass
 
@@ -791,36 +932,41 @@ def main():
 
     rand = phase_kernels(device, card)
     phase_goldens(device)
-    launches, real, frames = phase_main_path(device, card)
+    launches, real, frames, fused_times = phase_main_path(device, card)
     res = phase_real_cells(device, card, real, rand)
     tile_launches, tiles = phase_tiles(device, card)
     phase_tempinterp(device, card, frames)
+    unfused_launches, k2_err, unfused = phase_unfused(device, card, real,
+                                                      fused_times)
 
-    # each kernel's headline numbers are taken on the cells of a path that
-    # launches it: frame 1 of the bench decode for the luma and the U+V
-    # kernel, the CIF tile pipeline for the one-plane chroma kernel; the
-    # other cell sets stand beside them
+    # each kernel's headline numbers are taken on the cells of a
+    # real-stream path that launches it, frame 1 of the bench stream: the
+    # fused decode for the luma and the U+V kernel, the two-stage
+    # executor for the luma and the one-plane chroma kernel (the same
+    # cells, phase 7 checks it); the other cell sets stand beside them
     keys = ("ms", "kernel_ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
             "share", "bytes", "copy_ms")
     big, cif = tiles[f"5 tiles {W1080}x{H1080}"], tiles["5 tiles CIF"]
     kernels = []
-    for name, (source, replaces, _, need) in KERNELS.items():
+    for name, (source, replaces, _, _) in KERNELS.items():
         sets = {"bench stream frame 1": res[name]["real"],
                 "random 1080p cells": res[name]["random"],
                 "tile pipeline 1080p": big[name],
                 "tile pipeline CIF": cif[name]}
-        head = ("bench stream frame 1" if need["bench_decode"]
-                else "tile pipeline CIF")
+        head = "bench stream frame 1"
         r = sets.pop(head)
+        by_path = {"bench_decode": launches[name],
+                   "tile_pipeline": tile_launches[name],
+                   "unfused_decode": unfused_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches[name] + tile_launches[name],
-            "launches_by_path": {"bench_decode": launches[name],
-                                 "tile_pipeline": tile_launches[name]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(res[name]["errs"] +
                                [x["max_abs_err"] for x in sets.values()] +
-                               [r["max_abs_err"]]),
+                               [r["max_abs_err"]] +
+                               [k2_err] * (name == "mc_chroma_cells")),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "bound_us": r["bound_ms"] * 1e3,
@@ -829,6 +975,7 @@ def main():
             "bytes": r["bytes"], "cells": head,
             "other_cells": {what: {k: x[k] for k in keys}
                             for what, x in sets.items()}})
+    print(json.dumps({"unfused_decode": unfused}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -318,3 +318,138 @@ def test_interpolate_frames_on_the_card_equals_cpu(cuda, ratio, pos):
     for plane in ("y_full", "u_full", "v_full"):
         np.testing.assert_array_equal(getattr(outs[0], plane),
                                       getattr(outs[1], plane), plane)
+
+
+# (H, W, sub, mono, bd, deblocking, (s_y, s_u, s_v)): 4:2:0, 4:4:4 and mono
+FILTER_CASES = [
+    (96, 128, 1, False, 8, True, (1, 2, 3)),
+    (96, 128, 1, False, 10, True, (0, 0, 0)),
+    (64, 128, 1, False, 10, False, (3, 0, 1)),
+    (96, 128, 0, False, 8, True, (2, 3, 0)),
+    (64, 64, 0, False, 10, True, (0, 1, 2)),
+    (96, 128, 0, True, 8, True, (1, 0, 0)),
+    (64, 128, 0, True, 10, False, (0, 0, 0)),
+]
+
+
+def filters_exec_inputs(case, seed=0):
+    """Numpy inputs of one filters_exec call, made from a seed: the planes
+    as int16, every mask and map at the shape the decoder's host side
+    gives it (the (1, 1) placeholders where a stream has no such plane or
+    the filter is off), and the static keyword arguments.
+    tests/test_torch_fallbacks.py sends the same inputs through thor_tpu."""
+    H, W, sub, mono, bd, deblocking, (s_y, s_u, s_v) = case
+    rng = np.random.default_rng([seed, H, W, sub, int(mono), bd])
+    ph, pw = H >> sub, W >> sub
+
+    def plane(h, w):
+        # smooth ramps with noise, so that deblock and CDEF both act
+        base = (np.add.outer(np.arange(h) * 3, np.arange(w) * 2) +
+                rng.integers(-20, 21, (h, w)) * (rng.random((h, w)) < 0.3))
+        return (base % (1 << bd)).astype(np.int16)
+
+    def mask(h, w, p=0.6):
+        return rng.random((h, w)) < p
+
+    one = np.zeros((1, 1), bool)
+    nby, nbx = (H + 7) // 8, (W + 7) // 8
+    chroma = not mono
+    u, v = ((plane(ph, pw), plane(ph, pw)) if chroma
+            else (np.zeros((1, 1), np.int16),) * 2)
+    sec = np.array([0, 1, 2, 4], np.int32)
+    args = [
+        plane(H, W), u, v,
+        mask(H // 4, W // 8 - 1) if deblocking else one,
+        mask(H // 8 - 1, W // 4) if deblocking else one,
+        mask(H // 8, W // 8 - 1) if deblocking and chroma else one,
+        mask(H // 8 - 1, W // 8) if deblocking and chroma else one,
+        rng.integers(0, 32, (nby, nbx)).astype(np.int32),
+        sec[rng.integers(0, 4, (nby, nbx))], mask(H, W),
+        (rng.integers(0, 32, (nby, nbx)).astype(np.int32) if chroma
+         else np.zeros((1, 1), np.int32)),
+        (sec[rng.integers(0, 4, (nby, nbx))] if chroma
+         else np.zeros((1, 1), np.int32)),
+        mask(ph, pw) if chroma else one, mask(ph, pw) if chroma else one,
+        mask(H, W) if s_y else one,
+        mask(ph, pw) if s_u and chroma else one,
+        mask(ph, pw) if s_v and chroma else one]
+    qp = int(rng.integers(20, 52))
+    kw = dict(qp=qp, qpc=int(T.CHROMA_QP[qp]) if sub else qp, bd=bd, sub=sub,
+              mono=mono, deblocking=deblocking,
+              cdef_damping=int(rng.integers(3, 7)), cs=bd - 8, s_y=s_y,
+              s_u=s_u, s_v=s_v, qpclpf=qp >> 4)
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FILTER_CASES, ids=str)
+def test_filters_exec_on_the_card_equals_cpu(cuda, case):
+    from thor_tpu_torch.ops import filters as OF
+    args, kw = filters_exec_inputs(case)
+    got = OF.filters_exec(*_on(cuda, args), **kw)
+    want = OF.filters_exec(*_on("cpu", args), **kw)
+    assert got.dtype == torch.int16 and torch.equal(got.cpu(), want)
+
+
+def _golden(name):
+    import os
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                        name)
+    with open(base + ".bit", "rb") as f:
+        data = f.read()
+    with open(base + "_rec.yuv", "rb") as f:
+        return data, f.read()
+
+
+@pytest.mark.cuda
+def test_frame_exec_on_the_card_equals_cpu(cuda, monkeypatch):
+    """The two-stage executor's device half on the plans of a golden's P
+    frames (with and without bipred), the card against the CPU; K1 once or
+    twice a frame, K2 twice or four times, K3 never."""
+    from thor_tpu_torch import decode_stream
+    from thor_tpu_torch.dec import device_pixels as DP
+    seen = []
+    orig = DP.build_exec_inputs
+
+    def keep(dec, plan, refs):
+        out = orig(dec, plan, refs)
+        seen.append(out)
+        return out
+
+    monkeypatch.setattr(DP, "build_exec_inputs", keep)
+    data, golden = _golden("small256_LDB_medium_complexity")
+    _, frames = decode_stream(data, device="cpu", fused=False)
+    assert b"".join(frames) == golden and len(seen) == 7
+    assert {s["has_avg"] for _, s in seen} == {True, False}
+
+    def on(dev, a):
+        if isinstance(a, dict):
+            return {k: on(dev, v) for k, v in a.items()}
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for arrs, static in seen:
+        before = MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+        got = DP.frame_exec(**on(cuda, arrs), **static)
+        torch.cuda.synchronize()
+        after = MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+        lists = 2 if static["has_avg"] else 1
+        assert tuple(a - b for a, b in zip(after, before)) == (
+            lists, 2 * lists, 0)
+        want = DP.frame_exec(**on("cpu", arrs), **static)
+        assert got.dtype == torch.int16 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,fused", [
+    ("tiny64_ldblc", False), ("small256_LDB_high_efficiency", True),
+    ("c444_128", True)])
+def test_unfused_routes_decode_on_the_card(cuda, name, fused):
+    """Two-stage frames and host records with the card's filters_exec:
+    byte-equal to the golden, no frame on the fused route."""
+    from thor_tpu_torch import decode_stream
+    from thor_tpu_torch.dec import decoder as PD
+    data, golden = _golden(name)
+    PD.ROUTE_FRAMES.update(dict.fromkeys(PD.ROUTE_FRAMES, 0))
+    _, frames = decode_stream(data, device=cuda, fused=fused)
+    assert b"".join(frames) == golden
+    assert PD.ROUTE_FRAMES["fused"] == 0

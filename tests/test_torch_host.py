@@ -66,6 +66,7 @@ def test_table_functions_equal_thor_tpu():
     "_native/entropy.c", "_native/blockparse.c", "_native/thor_native.h",
     "bitstream.py", "frame.py", "io_y4m.py", "spec/__init__.py",
     "spec/inter.py", "spec/filters.py", "spec/tempinterp.py",
+    "spec/intra.py", "spec/cfl.py", "spec/transform_quant.py",
     "dec/native_parse.py", "qmtx.py", "qm_tables.npz"])
 def test_copies_equal_thor_tpu(name):
     """The files the port copies verbatim are byte-equal to thor_tpu's
@@ -149,11 +150,15 @@ def test_native_parse_equals_thor_tpu(name, monkeypatch):
 
 
 def test_frame_the_native_parser_cannot_hold_is_refused(monkeypatch):
-    """Where the native parser gives no records, thor_tpu's decoder walks
-    the frame in Python; the port has no such walk and says so."""
+    """Where the native parser gives no records (it refuses a frame that
+    its buffers cannot hold), the decoder walks the frame in Python, as
+    thor_tpu's does: no frame is refused any more, and the output is the
+    same."""
     monkeypatch.setattr(PNP, "parse_frame", lambda *a, **k: None)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        decode_stream(_read("tiny64_ldblc.bit"), device="cpu")
+    PD.ROUTE_FRAMES.update(dict.fromkeys(PD.ROUTE_FRAMES, 0))
+    _, frames = decode_stream(_read("tiny64_ldblc.bit"), device="cpu")
+    assert b"".join(frames) == _read("tiny64_ldblc_rec.yuv")
+    assert PD.ROUTE_FRAMES["python_walk"] == len(frames) == 6
 
 
 def test_decode_stream_defaults_to_cuda(monkeypatch):

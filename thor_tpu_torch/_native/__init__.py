@@ -3,8 +3,9 @@
 The bit-serial VLC coefficient scan and the block-layer syntax walk
 dominate host time; this module compiles the port's copies of entropy.c
 and blockparse.c (plain cc, no external deps) into build/thor_tpu_torch/
-on first use and exposes the ctypes mirror of the parser's context.  The
-decoder has no other parser: a failed build raises with the compiler's
+on first use and exposes the ctypes mirrors of the parser's context and
+of the C bit reader (the Python syntax walk scans coefficients through
+`read_coeff_scan`).  A failed build raises with the compiler's
 output.  (thor_tpu/_native/__init__.py also binds the encoder's
 blockemit.c; that half comes with the port's encoder.)
 """
@@ -49,8 +50,18 @@ def get_lib():
     lib = ctypes.CDLL(_SO)
     lib.parse_frame.restype = ctypes.c_long
     lib.parse_frame.argtypes = [ctypes.POINTER(ParseCtx)]
+    lib.read_coeff_scan.restype = None
+    lib.read_coeff_scan.argtypes = [ctypes.POINTER(BrStruct),
+                                    ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_int]
     _lib = lib
     return _lib
+
+
+class BrStruct(ctypes.Structure):
+    """Mirror of br_t in thor_native.h (the C bit reader)."""
+    _fields_ = [("data", ctypes.c_char_p), ("nbytes", ctypes.c_long),
+                ("bitpos", ctypes.c_long)]
 
 
 _i32p = ctypes.POINTER(ctypes.c_int32)

@@ -6,9 +6,10 @@ ring of reference planes kept on the device (through the CUDA kernels of
 ops/mc.py), the intra wave scan with chroma-from-luma, then the in-loop
 filters (deblock -> CDEF -> CLPF), display packing and reference edge
 padding.  The host uploads the parsed plan and pulls one packed display
-buffer.  Scope as in JAX, narrowed to the slice the port carries: 4:2:0,
-no cfl_inter, no tb-split intra (`eligible` raises on the rest); qmtx
-streams dequantize with their weight matrices (`pixel_core`'s `qm`).
+buffer.  Scope as in JAX: 4:2:0, no cfl_inter, no tb-split intra
+(`eligible` is False for the rest, which the decoder decodes on its
+unfused routes); qmtx streams dequantize with their weight matrices
+(`pixel_core`'s `qm`).
 
 The host helpers (`LY_KEYS`, `CH_KEYS`, `SEG_BUCKETS`, `INTRA_SIZES`,
 `_bucket`, `build_wave_segments`) are verbatim copies of
@@ -487,20 +488,17 @@ class DeviceFrameDecoder:
         return planes
 
     def eligible(self, dec, blks):
-        """True for every frame of the slice; raises on the rest, which
-        the decoder would otherwise send to its unported fallbacks."""
+        """Whether this decoder takes the frame: 4:2:0 without cfl_inter,
+        some block records, no tb-split intra.  The decoder sends the rest
+        to its two-stage executor or its host records."""
         h = dec.h
         if h.subsample != 420 or h.cfl_inter:
-            raise NotImplementedError(
-                "only 4:2:0 without cfl_inter is ported "
-                "(ROADMAP.md Queue 1, item 7, 'Decoder fallbacks')")
+            return False
         if len(blks) == 0:
-            raise NotImplementedError("a frame without block records")
+            return False
         intra = blks[:, NP.B_MODE] == MODE_INTRA
         if (intra & (blks[:, NP.B_TBSPLIT] > 0)).any():
-            raise NotImplementedError(
-                "tb-split intra is not ported (device_pixels.execute, "
-                "ROADMAP.md Queue 1, item 7, 'Decoder fallbacks')")
+            return False
         return True
 
     def run(self, dec, s, blks, plan, refs):

@@ -2,12 +2,16 @@
 thor_tpu/dec/device_pixels.py).
 
 The host helpers below (`_clip_mv`, `_plan_luma`, `_plan_chroma`,
-`_pad_to`, `FramePlan`) and `build_qm_operands` with `QM_SLOTS` are
-verbatim copies of thor_tpu/dec/device_pixels.py:43-187 and :464-516: the
-original module imports JAX at the top, and the port's decoder builds its
-`FramePlan` and its qmtx operands from this module.  The device functions
-are torch: dequantization with the inverse transform, and motion
-compensation over cells through the CUDA kernels of ops/mc.py.
+`_pad_to`, `FramePlan`, `plan_block_mc`, `_plan_temp`) and
+`build_qm_operands` with `QM_SLOTS` are verbatim copies of
+thor_tpu/dec/device_pixels.py:43-302 and :464-516: the original module
+imports JAX at the top, and the port's decoder builds its `FramePlan`
+and its qmtx operands from this module.  The device functions are torch:
+dequantization with the inverse transform, motion compensation over
+cells through the CUDA kernels of ops/mc.py, and the two-stage executor
+(`frame_exec`, `execute`) that decodes the inter cells of a frame the
+fused decoder does not take (luma through the luma kernel, chroma through
+the one-plane chroma kernel once per plane and list).
 """
 from __future__ import annotations
 
@@ -171,6 +175,122 @@ class FramePlan:
         g["hf" + s][by:by + nh, bx:bx + nw] = hf
 
 
+def plan_block_mc(plan: FramePlan, dec, bp, size, ypos, xpos, bwidth,
+                  bheight, ref_slots):
+    """Mirror Decoder._inter_pred / get_inter_prediction_yuv into the
+    plan grids (all the same control flow, no pixel math)."""
+    h = dec.h
+    fi = dec.fi
+    rec_num = dec.rec.frame_num
+    mode = bp["mode"]
+    W, H = dec.width, dec.height
+    temp_case = (mode == 0 and bp["dir"] == 2 and
+                 dec.stat_frame_type == 2 and h.interp_ref == 2 and
+                 bp["skip_idx"] == 0)
+
+    by, bx = ypos // 4, xpos // 4
+    plan.inter[by:by + bheight // 4, bx:bx + bwidth // 4] = 1
+
+    if temp_case:
+        _plan_temp(plan, dec, bp, size, ypos, xpos, bwidth, bheight,
+                   ref_slots)
+        return
+
+    def one_list(lst, ridx, sign, bipred_arg, split):
+        ref = dec._ref_frame(fi.ref_array[ridx])
+        slot = ref_slots[fi.ref_array[ridx]]
+        div = split + 1
+        bw, bh = bwidth // div, bheight // div
+        mv_arr = bp["mv_arr0"] if lst == 0 else bp["mv_arr1"]
+        for index in range(div * div):
+            idx, idy = index & 1, (index >> 1) & 1
+            oy, ox = idy * bh, idx * bw
+            mvy, mvx = mv_arr[index]
+            mvy, mvx = _clip_mv(mvy, mvx, ypos, xpos, W, H, bw, bh, sign)
+            pl = _plan_luma(mvy, mvx, ypos + oy, xpos + ox, bw, bh, sign,
+                            bipred_arg, W, H, ypos, xpos)
+            plan.fill_luma(lst, ypos + oy, xpos + ox, bw, bh, pl)
+            if lst == 0:
+                plan.ly["r0"][(ypos + oy) // 4:(ypos + oy + bh) // 4,
+                              (xpos + ox) // 4:(xpos + ox + bw) // 4] = slot
+            else:
+                plan.ly["r1"][(ypos + oy) // 4:(ypos + oy + bh) // 4,
+                              (xpos + ox) // 4:(xpos + ox + bw) // 4] = slot
+            pc = _plan_chroma(mvy, mvx, (ypos + oy) >> 1, (xpos + ox) >> 1,
+                              bw >> 1, bh >> 1, sign, W >> 1, H >> 1,
+                              ypos >> 1, xpos >> 1)
+            plan.fill_chroma(lst, ypos + oy, xpos + ox, bw, bh, pc)
+
+    if mode in (0, 4):  # SKIP / MERGE
+        if bp["dir"] == 2:
+            r0, r1 = bp["ref_idx0"], bp["ref_idx1"]
+            s0 = int(dec._ref_frame(fi.ref_array[r0]).frame_num >= rec_num)
+            s1 = int(dec._ref_frame(fi.ref_array[r1]).frame_num >= rec_num)
+            one_list(0, r0, s0, h.bipred, 0)
+            one_list(1, r1, s1, h.bipred, 0)
+            plan.avg[by:by + bheight // 4, bx:bx + bwidth // 4] = 1
+        else:
+            r0 = bp["ref_idx0"]
+            s0 = int(dec._ref_frame(fi.ref_array[r0]).frame_num > rec_num)
+            one_list(0, r0, s0, h.bipred, 0)
+    elif mode == 2:  # INTER (sequence-level pb_split flag as split arg)
+        r0 = bp["ref_idx0"]
+        s0 = int(dec._ref_frame(fi.ref_array[r0]).frame_num > rec_num)
+        one_list(0, r0, s0, h.bipred, h.pb_split)
+    elif mode == 3:  # BIPRED
+        r0, r1 = bp["ref_idx0"], bp["ref_idx1"]
+        s0 = int(dec._ref_frame(fi.ref_array[r0]).frame_num >= rec_num)
+        s1 = int(dec._ref_frame(fi.ref_array[r1]).frame_num >= rec_num)
+        one_list(0, r0, s0, h.bipred, h.pb_split)
+        one_list(1, r1, s1, h.bipred, h.pb_split)
+        plan.avg[by:by + bheight // 4, bx:bx + bwidth // 4] = 1
+    else:
+        raise ValueError(mode)
+
+
+def _plan_temp(plan, dec, bp, size, ypos, xpos, bwidth, bheight,
+               ref_slots):
+    """get_inter_prediction_temp (inter_prediction.c:352-411): per-4x4
+    MVs from the temporal MV store, bipred filter set, signs 0/1."""
+    h = dec.h
+    fi = dec.fi
+    W, H = dec.width, dec.height
+    gop = h.num_reorder_pics + 1
+    phase = fi.phase
+    slot0 = ref_slots[fi.ref_array[bp["ref_idx0"]]]
+    slot1 = ref_slots[fi.ref_array[bp["ref_idx1"]]]
+    by, bx = ypos // 4, xpos // 4
+    plan.avg[by:by + bheight // 4, bx:bx + bwidth // 4] = 1
+    for m in range(0, bheight, MIN_PB_SIZE):
+        for n in range(0, bwidth, MIN_PB_SIZE):
+            bi = ((ypos + m) // MIN_PB_SIZE) * dec.dd.bs + \
+                (xpos + n) // MIN_PB_SIZE
+            mv = (int(dec.dd.arr_mv0[bi, phase, 0]),
+                  int(dec.dd.arr_mv0[bi, phase, 1]))
+            yb, xb = ypos + m, xpos + n
+            mvy, mvx = _clip_mv(mv[0], mv[1], yb, xb, W, H,
+                                MIN_PB_SIZE, MIN_PB_SIZE, 0)
+            pl = _plan_luma(mvy, mvx, yb, xb, MIN_PB_SIZE, MIN_PB_SIZE,
+                            0, 2, W, H, yb, xb)
+            plan.fill_luma(0, yb, xb, MIN_PB_SIZE, MIN_PB_SIZE, pl)
+            plan.ly["r0"][yb // 4, xb // 4] = slot0
+            pc = _plan_chroma(mvy, mvx, yb >> 1, xb >> 1, 2, 2, 0,
+                              W >> 1, H >> 1, yb >> 1, xb >> 1)
+            plan.fill_chroma(0, yb, xb, MIN_PB_SIZE, MIN_PB_SIZE, pc)
+            mv1 = mv
+            if gop == 3 and phase == 1:
+                mv1 = (2 * mv[0], 2 * mv[1])
+            mvy, mvx = _clip_mv(mv1[0], mv1[1], yb, xb, W, H,
+                                MIN_PB_SIZE, MIN_PB_SIZE, 1)
+            pl = _plan_luma(mvy, mvx, yb, xb, MIN_PB_SIZE, MIN_PB_SIZE,
+                            1, 2, W, H, yb, xb)
+            plan.fill_luma(1, yb, xb, MIN_PB_SIZE, MIN_PB_SIZE, pl)
+            plan.ly["r1"][yb // 4, xb // 4] = slot1
+            pc = _plan_chroma(mvy, mvx, yb >> 1, xb >> 1, 2, 2, 1,
+                              W >> 1, H >> 1, yb >> 1, xb >> 1)
+            plan.fill_chroma(1, yb, xb, MIN_PB_SIZE, MIN_PB_SIZE, pc)
+
+
 # ---------------------------------------------------------------------------
 # device functions
 # ---------------------------------------------------------------------------
@@ -310,3 +430,121 @@ def build_qm_operands(dec, plan, blks):
             per[s] = bank
         banks[key] = per
     return wsel_y, wsel_c, banks
+
+
+# ---------------------------------------------------------------------------
+# two-stage executor: the inter half of a frame on the device, for frames
+# that the fused DeviceFrameDecoder does not take
+# ---------------------------------------------------------------------------
+
+def frame_exec(ystack, ustack, vstack, lg, cg, avg, coef_y, qp4_y, ls4_y,
+               coef_u, coef_v, qp4_c, ls4_c, H: int, W: int, bd: int,
+               pad: int, pad_c: int, has_avg: bool):
+    """MC + dequant/itx + reconstruct for a whole 4:2:0 frame
+    (thor_tpu/dec/device_pixels.py:frame_exec).
+
+    ystack/ustack/vstack [R,Hp,Wp] int16 padded reference planes; lg/cg
+    the plan's luma and chroma cell grids, flattened ({key: [gh*gw]
+    int32}); avg [gh*gw]; the dense coefficient planes with their qp and
+    log2-size grids.  Chroma MC runs once per plane and list, through the
+    one-plane kernel.  Returns one packed int16 buffer [H + H/2, W]: luma
+    on top, u|v side by side below (a single device->host pull)."""
+    gh, gw = H // 4, W // 4
+    H2, W2 = H // 2, W // 2
+
+    def cells_to_plane(p, cs):
+        return p.reshape(gh, gw, cs, cs).permute(0, 2, 1, 3).reshape(
+            gh * cs, gw * cs)
+
+    def luma(s):
+        return mc_cells_luma(ystack, lg["r" + s], lg["y0_" + s] + pad,
+                             lg["x0_" + s] + pad, lg["op" + s],
+                             lg["vf" + s], lg["hf" + s], lg["fs" + s], 4, bd)
+
+    def chroma(stack, s):
+        return mc_cells_chroma(stack, lg["r" + s], cg["y0_" + s] + pad_c,
+                               cg["x0_" + s] + pad_c, cg["op" + s],
+                               cg["vf" + s], cg["hf" + s], 2, bd)
+
+    # ---- luma MC, then chroma MC per plane (4:2:0) ----
+    p0, pu0, pv0 = luma("0"), chroma(ustack, "0"), chroma(vstack, "0")
+    if has_avg:
+        m = avg[:, None, None] == 1
+        p0 = torch.where(m, (p0 + luma("1")) >> 1, p0)
+        pu0 = torch.where(m, (pu0 + chroma(ustack, "1")) >> 1, pu0)
+        pv0 = torch.where(m, (pv0 + chroma(vstack, "1")) >> 1, pv0)
+
+    # ---- dense residuals ----
+    res_y = _dense_residual(coef_y, qp4_y, ls4_y, bd,
+                            (4, 8, 16, 32, 64, 128))[:H, :W]
+    res_u = _dense_residual(coef_u, qp4_c, ls4_c, bd,
+                            (4, 8, 16, 32, 64))[:H2, :W2]
+    res_v = _dense_residual(coef_v, qp4_c, ls4_c, bd,
+                            (4, 8, 16, 32, 64))[:H2, :W2]
+
+    # ---- reconstruct (pred routed through int16 like the reference) ----
+    maxv = (1 << bd) - 1
+
+    def recon(pred, cs, res):
+        return (_i16(cells_to_plane(pred, cs)) + res).clamp(0, maxv).to(
+            torch.int16)
+
+    rec_uv = torch.cat([recon(pu0, 2, res_u), recon(pv0, 2, res_v)], dim=1)
+    return torch.cat([recon(p0, 4, res_y), rec_uv], dim=0)
+
+
+def build_exec_inputs(dec, plan: FramePlan, ref_frames):
+    """(host arrays, static kwargs) for frame_exec.  The references are
+    stacked from the host frames, so any deferred pull of a fused frame
+    must be resolved first (Decoder.flush_pixels)."""
+    for r in ref_frames:
+        if not getattr(r, "host_pixels_valid", True):
+            raise RuntimeError(
+                "reading host pixels of a reference whose deferred device "
+                "copy has not been resolved (frame_num=%s)" % r.frame_num)
+    arrs = {
+        "ystack": np.stack([r.y_full for r in ref_frames]).astype(np.int16),
+        "ustack": np.stack([r.u_full for r in ref_frames]).astype(np.int16),
+        "vstack": np.stack([r.v_full for r in ref_frames]).astype(np.int16),
+        "lg": {k: v.reshape(-1) for k, v in plan.ly.items()},
+        "cg": {k: v.reshape(-1) for k, v in plan.ch.items()},
+        "avg": plan.avg.reshape(-1),
+        "coef_y": plan.coef["y"], "qp4_y": plan.qp4["y"],
+        "ls4_y": plan.ls4["y"], "coef_u": plan.coef["u"],
+        "coef_v": plan.coef["v"], "qp4_c": plan.qp4["c"],
+        "ls4_c": plan.ls4["c"],
+    }
+    static = dict(H=dec.height, W=dec.width, bd=dec.h.bitdepth,
+                  pad=ref_frames[0].pad, pad_c=ref_frames[0].pad_c,
+                  has_avg=bool(plan.avg.any()))
+    return arrs, static
+
+
+def merge_exec_output(dec, plan: FramePlan, packed: np.ndarray):
+    """Merge a pulled frame_exec buffer into dec.rec (inter cells)."""
+    H, W = dec.height, dec.width
+    H2 = H // 2
+    rec_y = packed[:H]
+    rec_u = packed[H:, :W // 2]
+    rec_v = packed[H:, W // 2:]
+    m4 = plan.inter.astype(bool)
+    my = np.repeat(np.repeat(m4, 4, 0), 4, 1)
+    mc2 = np.repeat(np.repeat(m4, 2, 0), 2, 1)
+    rec = dec.rec
+    rec.y[my] = rec_y[my].astype(rec.dtype)
+    rec.u[mc2] = rec_u[:H2][mc2].astype(rec.dtype)
+    rec.v[mc2] = rec_v[:H2][mc2].astype(rec.dtype)
+
+
+def execute(dec, plan: FramePlan, ref_slots, ref_frames):
+    """Run the planned frame on the decoder's device; fills dec.rec's
+    inter cells."""
+    arrs, static = build_exec_inputs(dec, plan, ref_frames)
+
+    def up(a):
+        if isinstance(a, dict):
+            return {k: up(v) for k, v in a.items()}
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dec.device)
+
+    packed = frame_exec(**up(arrs), **static)
+    merge_exec_output(dec, plan, packed.cpu().numpy())

@@ -475,3 +475,68 @@ def cdef_block_maps(dd, presets_per_fb, width_l, height_l, plane, sub):
                         mask[ypos:ypos + sizey, xpos:xpos + sizex] = True
             ci += 1
     return level, sec, mask
+
+
+# ------------------------------------------------- unfused frame passes
+
+def _pack16(y, u, v, sub: int, mono: bool):
+    """One int16 buffer for one pull: luma alone (mono), else luma over
+    u|v side by side (4:2:0) or over u over v (4:4:4)."""
+    i16 = torch.int16
+    if mono:
+        return y.to(i16)
+    return torch.cat([y.to(i16), torch.cat([u, v], dim=1 if sub else 0)
+                      .to(i16)], dim=0)
+
+
+def filters_exec(y, u, v, mv_, mh_, cmv, cmh, lv0, sec0, m0, lv1, sec1,
+                 m1, m2, clpf_my, clpf_mu, clpf_mv, qp: int, qpc: int,
+                 bd: int, sub: int, mono: bool, deblocking: bool,
+                 cdef_damping: int, cs: int, s_y: int, s_u: int, s_v: int,
+                 qpclpf: int):
+    """Whole in-loop chain (deblock -> CDEF -> CLPF) of a frame that did
+    not take the fused route (thor_tpu/ops/filters.py:filters_exec).
+
+    The planes and every mask are tensors on one device; the stream-read
+    parameters are host integers.  Planes and masks that a stream has
+    not (mono's chroma, masks of a filter that is off) are placeholders
+    that nothing reads.  Returns one packed int16 buffer (`_pack16`) so
+    that the frame costs a single device->host pull."""
+    if deblocking:
+        y = deblock_plane_y(y, mv_, mh_, qp, bd)
+        if not mono:
+            u = deblock_plane_uv(u, cmv, cmh, qpc, sub, bd)
+            v = deblock_plane_uv(v, cmv, cmh, qpc, sub, bd)
+
+    dirs, var = cdef_dirs(y, cs)
+    y = cdef_plane(y, dirs, var, lv0, sec0, m0, 8, 0, cdef_damping,
+                   cdef_damping, cs)
+    if not mono:
+        bsc = 4 if sub else 8
+        u = cdef_plane(u, dirs, var, lv1, sec1, m1, bsc, 1,
+                       cdef_damping - 1, cdef_damping - 1, cs)
+        v = cdef_plane(v, dirs, var, lv1, sec1, m2, bsc, 2,
+                       cdef_damping - 1, cdef_damping - 1, cs)
+
+    if s_y:
+        y = clpf_plane(y, clpf_my, (s_y + (s_y == 3)) << cs,
+                       bd - 4 + qpclpf)
+    if not mono:
+        if s_u:
+            u = clpf_plane(u, clpf_mu, (s_u + (s_u == 3)) << cs,
+                           bd - 5 + qpclpf)
+        if s_v:
+            v = clpf_plane(v, clpf_mv, (s_v + (s_v == 3)) << cs,
+                           bd - 5 + qpclpf)
+    return _pack16(y, u, v, sub, mono)
+
+
+def deblock_exec(y, u, v, mv_, mh_, cmv, cmh, qp: int, qpc: int, bd: int,
+                 sub: int, mono: bool):
+    """Deblock all three planes; packed int16 return (the encoder's tail
+    uses this; the decoder's full chain is filters_exec)."""
+    y = deblock_plane_y(y, mv_, mh_, qp, bd)
+    if not mono:
+        u = deblock_plane_uv(u, cmv, cmh, qpc, sub, bd)
+        v = deblock_plane_uv(v, cmv, cmh, qpc, sub, bd)
+    return _pack16(y, u, v, sub, mono)
