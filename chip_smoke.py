@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-mc DIR
     python3 chip_smoke.py --profile-tempinterp
+    python3 chip_smoke.py --turbo
 
 With no arguments it runs the phases below; any failure raises and the
 exit code is non-zero:
@@ -49,6 +50,25 @@ exit code is non-zero:
      this decode alone.  The one-plane chroma kernel is then held against
      its plain version on the arguments frame 1's two calls gave it,
      which must be phase 4's frame-1 cells.
+  8. the turbo encoder (thor_tpu_torch.encode_sequence), the twin of
+     bench.py:stage_turbo_lc: a 6-frame 1920x1088 textured clip
+     (default_rng(12)) with its LC parameters.  The stream must hash to
+     LC1080_STREAM_SHA256 (and the recon to LC1080_REC_SHA256), thor_tpu's
+     stream of the same encode on the CPU, and the port's decoder on the
+     card must decode it to the encoder's recon.  Printed: steady fps as
+     bench.py computes it, seconds per frame in decide_frame, the C plan,
+     finalize_core (synchronised on both sides), the pull, the C emit and
+     the filter tail (and in its deblock, CLPF search and CLPF
+     application), the intra wave segments per frame, the launches over
+     this encode alone (the luma kernel once and the one-plane chroma
+     kernel twice per P frame; not the U+V kernel); then the two kernels
+     against their plain versions on frame 1's finalizer calls, and
+     timed there; frame 1 (P) of that encode under torch.profiler (its
+     stage times include the profiler's cost); and the LC, HE-CDEF and
+     RA B-frame configurations of tests/test_torch_turbo.py encoded on
+     the card, each byte-equal to thor_tpu's stream in
+     tests/torch_turbo/, the LC one with the torch operations of each
+     encoder function counted per call.
 The kernels' times are device times: the launches queue behind a sleeping
 kernel, so the events time the card's work and not the Python that issues
 it (`call_ms`, one call timed alone, includes that; `kernel_ms` is the
@@ -60,6 +80,7 @@ results, the last line {"ok": true, "device": {...}}.
 `time_mc`), for an A/B of two checkouts on one card.
 `--profile-tempinterp` traces one 1080p temporal interpolation with
 torch.profiler instead (see `profile_tempinterp`).
+`--turbo` builds the kernels and runs phase 8 alone.
 """
 import argparse
 import hashlib
@@ -89,6 +110,29 @@ BENCH_STREAM = os.path.join(REPO, "benchmarks", "stream_1080p_lc.bit")
 BENCH_REC_SHA256 = ("287b83855649b54ea8deb70db12cb222"
                     "f16561eb25150ecdb1217823111425ef")
 H1080, W1080 = 1088, 1920
+# thor_tpu's turbo stream of phase 8's clip and parameters (bench.py:
+# stage_turbo_lc), encoded on the CPU, and the sha256 of its recon
+LC1080_STREAM_SHA256 = ("d88581bfdbfbc725801b929d6612ee76"
+                        "c9ad0dc6c1c406a04513a3b3daa23766")
+LC1080_REC_SHA256 = ("71299254113fc1564bfc6903b5a3a26d"
+                     "b497e7638497b7ffd31c7f2f5aad6a0b")
+# the LC parameters of bench.py:stage_turbo_lc and tests/test_turbo.py
+LC_KW = dict(qp=32, lambda_coeffI=0.8, lambda_coeffP=1.2,
+             early_skip_thr=1.0, max_num_ref=2, HQperiod=12, mqpP=1.2,
+             dqpI=-2, encoder_speed=2, cdef=0, clpf=1, use_block_contexts=1)
+# three configurations of tests/test_torch_turbo.py (W, H, frames, seed,
+# parameters over LC_KW) and their thor_tpu streams under tests/torch_turbo
+TURBO_FIXTURES = {
+    "lc": (128, 128, 2, 11, {}),
+    "he_cdef": (128, 96, 2, 3, dict(
+        early_skip_thr=0.3, enable_tb_split=1, enable_pb_split=1,
+        max_num_ref=4, intra_rdo=1, enable_bipred=1, cdef=2, clpf=0,
+        encoder_speed=0)),
+    "ra_bframes": (128, 96, 10, 5, dict(
+        num_reorder_pics=7, interp_ref=1, enable_bipred=1, dqpB0=3,
+        dqpB1=1, mqpB=1.2, mqpB0=1.1, mqpB1=1.2, mqpB2=1.3,
+        intra_period=64, HQperiod=8)),
+}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 rate
 # int32 multiply-adds run outside the tensor cores: the H100 SXM float32
 # rate outside them, 67 T/s, stands for their peak
@@ -96,24 +140,27 @@ OPS_PER_S = 67e12
 SRC = "thor_tpu_torch/csrc/"
 KERNELS = {   # name: (source, the Pallas call it replaces, launch counter
     #                in ops/mc.py, the launches each driven path must make:
-    #                the two bench decodes at least (none where 0), the
-    #                tile pipeline exactly)
+    #                the two bench decodes and the turbo encode at least
+    #                (none where 0), the tile pipeline exactly)
     "mc_luma_cells": (SRC + "mc_luma.cu", "thor_tpu/ops/mc_pallas.py:164",
                       "LUMA_LAUNCHES", {"bench_decode": 1,
                                         "tile_pipeline": 3,
-                                        "unfused_decode": 1}),
+                                        "unfused_decode": 1,
+                                        "turbo_encode": 1}),
     "mc_chroma_uv_cells": (SRC + "mc_chroma.cu",
                            "thor_tpu/ops/mc_pallas.py:385",
                            "CHROMA_UV_LAUNCHES", {"bench_decode": 1,
                                                   "tile_pipeline": 1,
-                                                  "unfused_decode": 0}),
+                                                  "unfused_decode": 0,
+                                                  "turbo_encode": 0}),
     # the one-plane case of thor_mc_chroma_cells: the two-stage executor
-    # calls it once per plane and list; the tile pipeline takes it when
-    # the tile count is no multiple of 16 (CIF: 396)
+    # and the turbo encoder's finalizer call it once per plane and list;
+    # the tile pipeline takes it when the tile count is no multiple of 16
+    # (CIF: 396)
     "mc_chroma_cells": (SRC + "mc_chroma.cu",
                         "thor_tpu/ops/mc_pallas.py:274", "CHROMA_LAUNCHES",
                         {"bench_decode": 0, "tile_pipeline": 2,
-                         "unfused_decode": 1}),
+                         "unfused_decode": 1, "turbo_encode": 1}),
 }
 
 
@@ -797,6 +844,354 @@ def phase_unfused(device, card, real, fused_times):
         "filters_exec_s": inner["filters_exec"]}
 
 
+def lc1080_clip(N=6):
+    """bench.py:stage_turbo_lc's clip: a textured gradient moving 8 pixels
+    a frame, flat chroma (raw 4:2:0 bytes)."""
+    import numpy as np
+    H, W = H1080, W1080
+    rng = np.random.default_rng(12)
+    base = np.clip(np.linspace(40, 210, W)[None, :] +
+                   np.linspace(0, 40, H)[:, None] +
+                   rng.integers(-12, 12, (H, W)), 0, 255).astype(np.uint8)
+    frames = []
+    for i in range(N):
+        y = np.roll(base, 8 * i, axis=1)
+        u = np.full((H // 2, W // 2), 124, np.uint8)
+        v = np.full((H // 2, W // 2), 132, np.uint8)
+        frames += [y.tobytes(), u.tobytes(), v.tobytes()]
+    return b"".join(frames)
+
+
+def fixture_clip(W, H, N, seed):
+    """tests/test_turbo.py:_clip (raw 4:2:0 bytes)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    base = np.clip(np.linspace(30, 200, W)[None, :] +
+                   np.linspace(0, 50, H)[:, None] +
+                   rng.integers(-10, 10, (H, W)), 0, 255).astype(np.uint8)
+    out = []
+    for i in range(N):
+        f = np.roll(base, i * 3, axis=1)
+        if i:
+            f = np.clip(f.astype(np.int16) +
+                        rng.integers(-2, 3, (H, W)), 0, 255
+                        ).astype(np.uint8)
+        u = np.clip(128 + rng.integers(-8, 8, (H // 2, W // 2)), 0,
+                    255).astype(np.uint8)
+        v = np.clip(128 + rng.integers(-8, 8, (H // 2, W // 2)), 0,
+                    255).astype(np.uint8)
+        out.append(f.tobytes() + u.tobytes() + v.tobytes())
+    return b"".join(out)
+
+
+def lc1080_params(N=6):
+    from thor_tpu_torch.enc.params import EncParams
+    return EncParams(width=W1080, height=H1080, num_frames=N, turbo=1,
+                     **LC_KW)
+
+
+# torch operations that only re-view a tensor: no kernel runs for them
+VIEW_OPS = {"view", "_unsafe_view", "expand", "permute", "slice", "select",
+            "t", "transpose", "as_strided", "unsqueeze", "squeeze", "detach",
+            "lift_fresh", "alias", "reshape", "unbind", "split", "chunk",
+            "_reshape_alias", "narrow", "diagonal", "unfold"}
+
+
+def count_ops(targets, run):
+    """Runs run() and returns, for each (module, name) in targets, the
+    torch operations each call of that function dispatched, views left
+    out (each other operation is about one kernel launch on the card;
+    a call's count includes the functions it calls)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ not in VIEW_OPS:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    counts = {name: [] for _, name in targets}
+    saved = [(m, name, getattr(m, name)) for m, name in targets]
+
+    def wrap(fn, name):
+        def counted(*args, **kw):
+            with Count() as c:
+                r = fn(*args, **kw)
+            counts[name].append(c.n)
+            return r
+        return counted
+
+    for m, name, fn in saved:
+        setattr(m, name, wrap(fn, name))
+    try:
+        run()
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+    return counts
+
+
+def phase_turbo(device, card):
+    """Phase 8: the turbo encoder at 1080p on the card (see the module
+    docstring); returns the launches over the 1080p encode and the two
+    kernels' results on frame 1's finalizer cells."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from thor_tpu_torch import decode_stream, encode_sequence
+    from thor_tpu_torch.dec import device_pixels as DP
+    from thor_tpu_torch.enc import encoder as PE
+    from thor_tpu_torch.enc import filters_rdo as FR
+    from thor_tpu_torch.enc import turbo as PT
+    from thor_tpu_torch.enc import turbo_final as PF
+    from thor_tpu_torch.enc import turbo_native as TN
+    from thor_tpu_torch.enc.params import EncParams
+    from thor_tpu_torch.ops import mc as MC
+
+    N = 6
+    yuv = lc1080_clip(N)
+    stage = {k: [] for k in ("decide", "plan", "finalize", "pull", "emit",
+                             "tail")}
+    # the filter tail's parts, summed per frame
+    tail_parts = {k: [0.0] * N for k in ("deblock", "clpf_search",
+                                          "clpf_apply")}
+    segments, calls = [], {"luma": [], "chroma": []}
+    orig = {"decide": (PT, "decide_frame"), "plan": (TN, "plan_frame"),
+            "finalize": (PF, "finalize_core"), "pull": (PF, "_pull"),
+            "emit": (TN, "emit_frame"),
+            "tail": (PE.Encoder, "_encode_frame_tail"),
+            "deblock": (PE.Encoder, "_deblock_device"),
+            "clpf_search": (FR, "clpf_test_frame"),
+            "clpf_apply": (PE.Encoder, "_clpf_apply"),
+            "luma": (DP, "mc_cells_luma"), "chroma": (DP, "mc_cells_chroma"),
+            "frame": (PE.Encoder, "encode_frame")}
+    saved = {k: getattr(m, a) for k, (m, a) in orig.items()}
+
+    def timed(key, sync=False):
+        fn = saved[key]
+
+        def run(*args, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*args, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if key in tail_parts:     # host results: no sync needed
+                tail_parts[key][len(stage["decide"]) - 1] += dt
+            else:
+                stage[key].append(dt)
+            if key == "finalize":     # finalize_core's segcls argument
+                segments.append(int((np.asarray(args[11]) > 0).sum()))
+            return r
+        return run
+
+    def captured(key):
+        fn = saved[key]
+
+        def run(*args):
+            if len(stage["decide"]) == 2:     # frame 1, the first P frame
+                calls[key].append(args)
+            return fn(*args)
+        return run
+
+    times = []
+
+    def prog(fn, ft, stats):
+        times.append(time.time())
+
+    # frame 1, the first P frame, runs under torch.profiler (frames 2..
+    # give the steady fps)
+    prof_out = {}
+
+    def traced(self):
+        if self.fi.frame_num != 1:
+            return saved["frame"](self)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            r = saved["frame"](self)
+            torch.cuda.synchronize()
+            prof_out["s"] = time.perf_counter() - t1
+        prof_out["prof"] = prof
+        return r
+
+    wrappers = {k: timed(k, sync=(k == "finalize"))
+                for k in list(stage) + list(tail_parts)}
+    wrappers.update(luma=captured("luma"), chroma=captured("chroma"),
+                    frame=traced)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(MC)
+    for k, (m, a) in orig.items():
+        setattr(m, a, wrappers[k])
+    t0 = time.time()
+    try:
+        bs, rec = encode_sequence(lc1080_params(N), yuv, progress=prog,
+                                  device=device)
+    finally:
+        for k, (m, a) in orig.items():
+            setattr(m, a, saved[k])
+    wall = time.time() - t0
+    launches = read_launches(MC)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    digests = (hashlib.sha256(bs).hexdigest(),
+               hashlib.sha256(rec).hexdigest())
+    if digests != (LC1080_STREAM_SHA256, LC1080_REC_SHA256):
+        raise AssertionError(f"1080p turbo stream/recon sha256 {digests} != "
+                             f"the reference's {LC1080_STREAM_SHA256}, "
+                             f"{LC1080_REC_SHA256}")
+    counts = [len(v) for v in stage.values()]
+    if any(c != N for c in counts):
+        raise AssertionError(f"stages per frame {counts}, expected {N} "
+                             f"each (the C plan walk took every frame?)")
+    check_launches(launches, "turbo_encode")
+    times.insert(0, t0)
+    deltas = [b - a for a, b in zip(times, times[1:])]
+    steady = deltas[2:] if len(deltas) > 3 else deltas
+    fps = len(steady) / sum(steady)
+    print(f"phase 8: 1080p turbo LC encode ({N} frames, {len(bs)} bytes): "
+          f"stream and recon sha256 equal thor_tpu's; steady fps "
+          f"{fps:.4f} (bench.py's frames 2..), whole encode {wall:.3f} s; "
+          f"per-frame s {[round(d, 4) for d in deltas]}; peak device memory "
+          f"{peak:.1f} MiB; launches {launches}; card {card}", flush=True)
+    for k, v in list(stage.items()) + [("tail: " + k, v)
+                                       for k, v in tail_parts.items()]:
+        print(f"phase 8: per-frame s in {k}: {[round(t, 4) for t in v]}",
+              flush=True)
+    print(f"phase 8: intra wave segments per frame: {segments}", flush=True)
+
+    t0 = time.time()
+    _, frames = decode_stream(bs, device=device)
+    if b"".join(frames) != rec:
+        raise AssertionError("the port's decoder on the card does not "
+                             "reproduce the turbo encoder's recon")
+    print(f"phase 8: the port's decoder on the card decodes the stream to "
+          f"the encoder's recon ({time.time() - t0:.3f} s)", flush=True)
+
+    # the kernels against their plain versions on frame 1's finalizer
+    # calls (the luma kernel once, the one-plane chroma kernel for U and
+    # V), then timed there; these launches are outside the counts above
+    if len(calls["luma"]) != 1 or len(calls["chroma"]) != 2:
+        raise AssertionError(f"frame 1's finalizer made {len(calls['luma'])}"
+                             f" luma and {len(calls['chroma'])} chroma calls"
+                             f", expected 1 and 2")
+    res = {}
+    for name, fn, plain, args, luma in (
+            ("mc_luma_cells", MC.mc_cells_luma, MC.mc_cells_luma_plain,
+             calls["luma"][0], True),
+            ("mc_chroma_cells", MC.mc_cells_chroma,
+             MC.mc_cells_chroma_plain, calls["chroma"][0], False)):
+        errs = []
+        for a in ([args] if luma else calls["chroma"]):
+            got = fn(*a)
+            torch.cuda.synchronize()
+            errs.append(max_err(got, plain(*a)))
+        if max(errs) != 0:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"on the turbo finalizer's cells")
+        keys = ("rsel", "y0", "x0", "op", "vf", "hf") + (("fs",) if luma
+                                                          else ())
+        cells = dict(zip(keys, args[1:1 + len(keys)]))
+        k1, p1 = device_ms(lambda: fn(*args)), device_ms(
+            lambda: plain(*args), reps=4)
+        k2, p2 = device_ms(lambda: fn(*args)), device_ms(
+            lambda: plain(*args), reps=4)
+        nbytes, b_ms, by = bound(cells, args[0], luma, 1)
+        res[name] = r = {"max_abs_err": max(errs), "ms": min(k1, k2),
+                         "plain_ms": min(p1, p2), "bytes": nbytes,
+                         "bound_ms": b_ms, "bound_by": by,
+                         "share": b_ms / min(k1, k2),
+                         "cells": int(cells["y0"].shape[0])}
+        print(f"phase 8: {name} on frame 1's finalizer cells ({r['cells']} "
+              f"cells): max_abs_err {errs}; kernel {r['ms']:.6f} ms, plain "
+              f"{r['plain_ms']:.4f} ms; {nbytes} bytes, bound "
+              f"{b_ms * 1e3:.3f} us ({by}), share {r['share']:.3f}; card "
+              f"{card}", flush=True)
+
+    ev = [e for e in prof_out["prof"].key_averages()
+          if e.device_time_total > 0]
+    if not ev:
+        raise AssertionError("torch.profiler saw no device work in frame 1")
+    busy = sum(e.device_time_total for e in ev) / 1e6
+    top = sorted(ev, key=lambda e: -e.device_time_total)[:6]
+    profiled = {"frame_s": prof_out["s"], "kernels": sum(e.count for e in ev),
+                "device_busy_s": busy,
+                "idle_share": 1 - busy / prof_out["s"],
+                "top": [[e.key[:50], e.count, e.device_time_total / 1e6]
+                        for e in top]}
+    print(f"phase 8: frame 1 (P) under torch.profiler: {json.dumps(profiled)}"
+          f"; card {card}", flush=True)
+
+    # the test configurations on the card, against thor_tpu's streams
+    with open(os.path.join(REPO, "tests", "torch_turbo",
+                           "fixtures.json")) as f:
+        meta = json.load(f)
+    # the LC configuration with the torch operations of each function of
+    # the encoder counted per call (ROADMAP.md's launch counts)
+    # (the ops functions are counted where the encoder's modules bound
+    # them by name)
+    targets = [(PT, f) for f in (
+        "decide_frame", "scale2", "prepass_half", "refine16", "upsize_mv",
+        "eval_inter", "eval_skip", "eval_intra", "eval_bipred",
+        "quantize_batch", "coeff_bits_batch", "fwd_transform_batch")] + [
+        (PF, "finalize_core"), (PF, "_coef_plane"),
+        (PF, "_enc_intra_waves"), (PF, "quantize_batch"),
+        (PF, "fwd_transform_batch"), (PE.Encoder, "_encode_frame_tail"),
+        (PE.Encoder, "_deblock_device")]
+    lc_segments = []
+    waves = PF._enc_intra_waves
+
+    def segments_of(*args, **kw):     # segcls is the 8th argument
+        lc_segments.append(int((np.asarray(args[7]) > 0).sum()))
+        return waves(*args, **kw)
+    for name, (W, H, n, seed, kw) in TURBO_FIXTURES.items():
+        with open(os.path.join(REPO, "tests", "torch_turbo",
+                               name + ".bit"), "rb") as f:
+            want = f.read()
+        args = dict(LC_KW)
+        args.update(kw)
+        t0 = time.time()
+        out = []
+
+        def run():
+            out[:] = encode_sequence(
+                EncParams(width=W, height=H, num_frames=n, turbo=1, **args),
+                fixture_clip(W, H, n, seed), device=device)
+        if name == "lc":
+            PF._enc_intra_waves = segments_of
+            try:
+                ops = {k: {"calls": len(v), "min": min(v), "max": max(v),
+                           "total": sum(v)}
+                       for k, v in count_ops(targets, run).items() if v}
+            finally:
+                PF._enc_intra_waves = waves
+        else:
+            run()
+        got, rec = out
+        if (got != want or hashlib.sha256(rec).hexdigest() !=
+                meta[name]["rec_sha256"]):
+            raise AssertionError(f"turbo configuration {name}: the card's "
+                                 f"stream differs from thor_tpu's")
+        print(f"phase 8: turbo configuration {name} ({W}x{H}, {n} frames) "
+              f"on the card: stream byte-equal to thor_tpu's "
+              f"({time.time() - t0:.3f} s)", flush=True)
+    print(f"phase 8: torch operations per call (views left out) on the lc "
+          f"configuration (an I and a P frame): {json.dumps(ops)}; intra "
+          f"wave segments per frame {lc_segments}", flush=True)
+    return launches, res, {"steady_fps": fps, "per_frame_s": deltas,
+                           "stage_s": stage, "tail_parts_s": tail_parts,
+                           "segments": segments,
+                           "profiled_p_frame": profiled,
+                           "lc_ops_per_call": ops,
+                           "lc_segments": lc_segments}
+
+
 class _Captured(Exception):
     pass
 
@@ -909,6 +1304,9 @@ def main():
     ap.add_argument("--profile-tempinterp", action="store_true",
                     help="trace one 1080p temporal interpolation and run "
                     "nothing else")
+    ap.add_argument("--turbo", action="store_true",
+                    help="build the kernels and run phase 8 (the turbo "
+                    "encoder) alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -930,6 +1328,10 @@ def main():
           f"({build.library_path()})", flush=True)
     print(build.build_log.strip(), flush=True)
 
+    if args.turbo:
+        _, _, turbo = phase_turbo(device, card)
+        print(json.dumps({"turbo_encode": turbo}))
+        return 0
     rand = phase_kernels(device, card)
     phase_goldens(device)
     launches, real, frames, fused_times = phase_main_path(device, card)
@@ -938,6 +1340,7 @@ def main():
     phase_tempinterp(device, card, frames)
     unfused_launches, k2_err, unfused = phase_unfused(device, card, real,
                                                       fused_times)
+    turbo_launches, turbo_cells, turbo = phase_turbo(device, card)
 
     # each kernel's headline numbers are taken on the cells of a
     # real-stream path that launches it, frame 1 of the bench stream: the
@@ -957,7 +1360,10 @@ def main():
         r = sets.pop(head)
         by_path = {"bench_decode": launches[name],
                    "tile_pipeline": tile_launches[name],
-                   "unfused_decode": unfused_launches[name]}
+                   "unfused_decode": unfused_launches[name],
+                   "turbo_encode": turbo_launches[name]}
+        if name in turbo_cells:
+            sets["turbo finalizer frame 1"] = turbo_cells[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -973,9 +1379,10 @@ def main():
             "share": r["share"], "call_ms": r["call_ms"],
             "kernel_ms": r["kernel_ms"], "copy_ms": r["copy_ms"],
             "bytes": r["bytes"], "cells": head,
-            "other_cells": {what: {k: x[k] for k in keys}
+            "other_cells": {what: {k: x.get(k) for k in keys}
                             for what, x in sets.items()}})
     print(json.dumps({"unfused_decode": unfused}))
+    print(json.dumps({"turbo_encode": turbo}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -453,3 +453,131 @@ def test_unfused_routes_decode_on_the_card(cuda, name, fused):
     _, frames = decode_stream(data, device=cuda, fused=fused)
     assert b"".join(frames) == golden
     assert PD.ROUTE_FRAMES["fused"] == 0
+
+
+# ------------------------------------------------------ the turbo encoder
+
+def _enc_frames(rng, h, w, bd=8):
+    hi = (1 << bd) - 1
+    base = (np.linspace(0, hi * 0.7, w)[None, :] +
+            np.linspace(0, hi * 0.2, h)[:, None])
+    org = np.clip(base + rng.integers(-hi // 16, hi // 16, (h, w)), 0,
+                  hi).astype(np.int32)
+    ref = np.pad(np.clip(np.roll(org, (3, -5), axis=(0, 1)) +
+                         rng.integers(-4, 5, (h, w)), 0, hi), 160,
+                 mode="edge").astype(np.int32)
+    orgp = np.zeros((h + 130, w + 130), np.int32)
+    orgp[:h, :w] = org
+    return org, orgp, ref
+
+
+def _both(fn, dev, *arrays, **kw):
+    """fn on the card and on the CPU over the same numpy inputs; every
+    output equal."""
+    def on(d, a):
+        if isinstance(a, np.ndarray):
+            return torch.from_numpy(a).to(d)
+        return a.to(d) if isinstance(a, torch.Tensor) else a
+
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        r = fn(*[on(d, a) for a in arrays],
+               **{k: on(d, a) for k, a in kw.items()})
+        outs.append([t.cpu() for t in (r if isinstance(r, tuple) else (r,))])
+    for g, w in zip(*outs):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tb", [False, True])
+def test_turbo_decisions_on_the_card_equal_cpu(cuda, tb):
+    """The decision pass's functions (enc/turbo.py) on the card equal
+    themselves on the CPU: motion search, inter (tb trial on and off),
+    skip, intra (4 and 10 modes) and bipred costs."""
+    from thor_tpu_torch.enc import turbo as PT
+    rng = np.random.default_rng(70 + tb)
+    H, W = 64, 128
+    org, orgp, ref = _enc_frames(rng, H, W)
+    _, _, ref2 = _enc_frames(rng, H, W)
+    lam = torch.tensor(np.float32(49.03))
+    orgh, refh = (PT.scale2(torch.from_numpy(a)).numpy() for a in (org, ref))
+    _both(PT.prepass_half, cuda, orgh, refh, H // 2, W // 2)
+    mvh = PT.prepass_half(torch.from_numpy(orgh), torch.from_numpy(refh),
+                          H // 2, W // 2).numpy()
+    _both(PT.refine16, cuda, org, ref, mvh, H, W, 8)
+    mv16 = PT.refine16(torch.from_numpy(org), torch.from_numpy(ref),
+                       torch.from_numpy(mvh), H, W, 8).numpy()
+    _both(PT.upsize_mv, cuda, org, ref, mv16, H, W, 32, 8)
+    for s in (8, 16, 32, 64):
+        n = (H // s) * (W // s)
+        mv = rng.integers(-40, 40, (n, 2)).astype(np.int32)
+        mv2 = rng.integers(-40, 40, (n, 2)).astype(np.int32)
+        _both(PT.eval_inter, cuda, org, ref, mv, lam, 30, H, W, s, 8,
+              tb_trial=tb)
+        _both(PT.eval_skip, cuda, org, ref, mv, lam, H, W, s, 8)
+        _both(PT.eval_bipred, cuda, org, ref, ref2, mv, mv2, lam, 34, H, W,
+              s, 8, tb_trial=tb)
+        for nim in (4, 10):
+            _both(PT.eval_intra, cuda, orgp, org, lam, 27, H, W, s, 8,
+                  nim=nim)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [4, 8, 16, 32])
+def test_turbo_ops_on_the_card_equal_cpu(cuda, size):
+    """Forward transform, quantizer (plain and weighted) and the exact bit
+    count on the card equal themselves on the CPU."""
+    from thor_tpu_torch.ops import coeff_cost as PC
+    from thor_tpu_torch.ops import quant as PQ
+    from thor_tpu_torch.ops import transform as PTR
+    rng = np.random.default_rng(80 + size)
+    qs = min(size, 16)
+    res = rng.integers(-1023, 1024, (64, size, size)).astype(np.int32)
+    for fast in (False, True):
+        _both(PTR.fwd_transform_batch, cuda, res, size, fast, 10)
+    co = (rng.normal(0, 400, (64, qs, qs)) *
+          (rng.random((64, qs, qs)) < 0.4)).astype(np.int16)
+    wm = rng.integers(16, 160, (qs, qs)).astype(np.int64)
+    for intra in (0, 1):
+        for qp in (4, 33, 51):
+            _both(PQ.quantize_batch, cuda, co, qp, size, intra)
+            _both(PQ.quantize_batch, cuda, co, qp, size, intra,
+                  wmatrix=wm, weighted=True)
+    sc = (rng.integers(-30, 31, (64, qs * qs)) *
+          (rng.random((64, qs * qs)) < 0.3)).astype(np.int32)
+    for chroma in (0, 1):
+        for intra in (0, 1):
+            _both(PC.coeff_bits_batch, cuda, sc, size, chroma, intra)
+
+
+@pytest.mark.cuda
+def test_turbo_encodes_on_the_card_equal_thor_tpus_streams(cuda):
+    """The LC configuration of tests/test_torch_turbo.py encoded on the
+    card: thor_tpu's stream (tests/torch_turbo/lc.bit), with the luma and
+    the one-plane chroma kernel launched by the finalizer."""
+    import hashlib
+    import json
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as CS
+    from thor_tpu_torch import encode_sequence
+    from thor_tpu_torch.enc.params import EncParams
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "torch_turbo")
+    with open(os.path.join(fix, "fixtures.json")) as f:
+        meta = json.load(f)
+    W, H, N, seed, kw = CS.TURBO_FIXTURES["lc"]
+    before = MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+    bs, rec = encode_sequence(
+        EncParams(width=W, height=H, num_frames=N, turbo=1,
+                  **dict(CS.LC_KW, **kw)),
+        CS.fixture_clip(W, H, N, seed), device=cuda)
+    with open(os.path.join(fix, "lc.bit"), "rb") as f:
+        assert bs == f.read()
+    assert hashlib.sha256(rec).hexdigest() == meta["lc"]["rec_sha256"]
+    after = MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+    # one P frame: the luma kernel once, the one-plane kernel for U and V
+    assert (after[0] - before[0], after[1] - before[1],
+            after[2] - before[2]) == (1, 2, 0)

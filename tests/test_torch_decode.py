@@ -153,6 +153,11 @@ def test_package_never_imports_jax():
     srcs = glob.glob(os.path.join(REPO, "thor_tpu_torch", "**", "*.py"),
                      recursive=True)
     assert srcs
+    # the encoder's modules are among them
+    for mod in ("encoder", "turbo", "turbo_final", "turbo_native",
+                "filters_rdo", "params", "writer"):
+        assert os.path.join(REPO, "thor_tpu_torch", "enc", mod + ".py") \
+            in srcs, mod
     for src in srcs + [os.path.join(REPO, "chip_smoke.py"),
                        os.path.join(REPO, "tests", "test_torch_cuda.py")]:
         with open(src) as f:
@@ -183,7 +188,10 @@ def test_decodes_without_jax(tmp_path):
         "port = os.path.join(os.getcwd(), 'thor_tpu_torch', '_native')\n"
         "bad += [s for s in _native._SRCS if os.path.dirname(s) != port]\n"
         "print(*[hashlib.sha256(f).hexdigest() for f in fr], bad)\n")
+    # one torch thread, as in the test processes: beside other test
+    # processes a pool of one thread per core spins for minutes
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"
     names = ("tiny64_ldblc", "ir2_128", "small256_LDB_high_efficiency")
     r = subprocess.run([sys.executable, "-c", code] +
                        [os.path.join(GOLDEN, n + ".bit") for n in names],
@@ -199,7 +207,8 @@ def _cli_dec(name, out):
                         os.path.join(GOLDEN, name + ".bit"), str(out)],
                        capture_output=True, text=True, cwd=REPO,
                        timeout=600,
-                       env={**os.environ, "THOR_TORCH_DEVICE": "cpu"})
+                       env={**os.environ, "THOR_TORCH_DEVICE": "cpu",
+                            "OMP_NUM_THREADS": "1"})
     assert r.returncode == 0, r.stderr
     with open(os.path.join(GOLDEN, "stdout", name + "_dec.txt")) as f:
         assert r.stdout == f.read()

@@ -67,7 +67,8 @@ def test_table_functions_equal_thor_tpu():
     "bitstream.py", "frame.py", "io_y4m.py", "spec/__init__.py",
     "spec/inter.py", "spec/filters.py", "spec/tempinterp.py",
     "spec/intra.py", "spec/cfl.py", "spec/transform_quant.py",
-    "dec/native_parse.py", "qmtx.py", "qm_tables.npz"])
+    "dec/native_parse.py", "qmtx.py", "qm_tables.npz",
+    "enc/params.py", "enc/writer.py", "_native/blockemit.c"])
 def test_copies_equal_thor_tpu(name):
     """The files the port copies verbatim are byte-equal to thor_tpu's
     (tables.py, the loader, decoder.py and cli.py differ by design and
@@ -99,6 +100,19 @@ def test_native_build_failure_raises_with_the_compiler_output(
         PN.get_lib()
     assert "error" in str(e.value)
     assert not (tmp_path / "lib.so").exists()
+
+
+def test_native_library_exports_the_turbo_passes():
+    """The port's C library holds the turbo encoder's plan and emit passes
+    (blockemit.c), bound with their argument mirrors."""
+    lib = PN.get_lib()
+    for name in ("plan_frame_turbo", "emit_frame_turbo", "write_coeff_scan",
+                 "parse_frame"):
+        assert hasattr(lib, name), name
+    assert lib.plan_frame_turbo.argtypes[1]._type_ is PN.TurboPlan
+    assert lib.emit_frame_turbo.argtypes[2]._type_ is PN.TurboEmit
+    assert os.path.join(os.path.dirname(PN.__file__), "blockemit.c") in \
+        PN._SRCS
 
 
 def _plan_arrays(plan):

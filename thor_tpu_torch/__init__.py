@@ -1,4 +1,5 @@
-"""thor_tpu_torch: the Thor decoder on PyTorch and CUDA (NVIDIA Hopper).
+"""thor_tpu_torch: the Thor decoder and turbo encoder on PyTorch and CUDA
+(NVIDIA Hopper).
 
 A port of thor_tpu, which stays the reference.  The port imports nothing
 of thor_tpu: it keeps its own copy of the host tier that its decode runs
@@ -8,8 +9,10 @@ syntax walk), and its device tier is torch with hand-written CUDA
 kernels.  The decoder does all that thor_tpu's does: every stream decodes
 (4:2:0, 4:4:4 and mono; 8 to 12 bits; qmtx; temporal interpolation), a
 frame on the fused device route where the stream allows it and on the
-two-stage executor or the host records otherwise (dec/decoder.py).  Entry
-points decode on the CUDA card unless the caller asks for the CPU
+two-stage executor or the host records otherwise (dec/decoder.py).  The
+encoder is thor_tpu's turbo encoder (enc/), byte-identical with its turbo
+streams; thor_tpu's exact encoder is not ported.  Entry points decode and
+encode on the CUDA card unless the caller asks for the CPU
 (`device="cpu"`); `decode_stream(..., fused=False)` keeps every frame off
 the fused route.
 
@@ -21,7 +24,13 @@ Layout:
   copied from thor_tpu (what the decode runs of it)
 - ops/: torch functions and CUDA kernel wrappers, bit-exact with
   thor_tpu/ops (mc.py wraps csrc/*.cu; tempinterp.py is temporal
-  interpolation)
+  interpolation; transform.py, quant.py, coeff_cost.py and me_batch.py
+  carry the encoder's forward transform, quantizer, bit count and MV
+  helpers)
+- enc/: the turbo encoder: frame loop and filter tail (encoder.py), the
+  batched decision pass (turbo.py), the device finalizer with the C or
+  Python plan/emit walks (turbo_final.py, turbo_native.py), the CDEF/CLPF
+  searches (filters_rdo.py), and the copied params.py and writer.py
 - dec/: the decoder entry point and its routes (decoder.py), the fused
   frame decoder on the device (device_frame.py), the frame plan and the
   two-stage executor (device_pixels.py)
@@ -30,3 +39,4 @@ Layout:
 - csrc/, kernels/: CUDA C++ sources for sm_90a and their build/binding
 """
 from .dec.decoder import decode_stream  # noqa: F401
+from .enc.encoder import encode_sequence  # noqa: F401

@@ -1,13 +1,15 @@
-"""Native (C) host-side entropy tier: the port's copy of the block parser.
+"""Native (C) host-side entropy tier: the port's copy of the block parser
+and of the turbo encoder's plan/emit passes.
 
 The bit-serial VLC coefficient scan and the block-layer syntax walk
-dominate host time; this module compiles the port's copies of entropy.c
-and blockparse.c (plain cc, no external deps) into build/thor_tpu_torch/
-on first use and exposes the ctypes mirrors of the parser's context and
-of the C bit reader (the Python syntax walk scans coefficients through
-`read_coeff_scan`).  A failed build raises with the compiler's
-output.  (thor_tpu/_native/__init__.py also binds the encoder's
-blockemit.c; that half comes with the port's encoder.)
+dominate host time; this module compiles the port's copies of entropy.c,
+blockparse.c and blockemit.c (plain cc, no external deps) into
+build/thor_tpu_torch/ on first use and exposes the ctypes mirrors of the
+parser's context, of the C bit reader and writer (the Python syntax walk
+scans coefficients through `read_coeff_scan`, the encoder's writer emits
+them through `write_coeff_scan`) and of the turbo encoder's plan and
+emit arguments (`TurboPlan`, `TurboEmit`; enc/turbo_native.py).  A
+failed build raises with the compiler's output.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ from ..kernels.build import BUILD_DIR
 _DIR = os.path.dirname(__file__)
 _SO = os.path.join(BUILD_DIR, "libthorentropy.so")
 _SRCS = [os.path.join(_DIR, "entropy.c"),
-         os.path.join(_DIR, "blockparse.c")]
+         os.path.join(_DIR, "blockparse.c"),
+         os.path.join(_DIR, "blockemit.c")]
 
 _lib = None
 
@@ -54,6 +57,13 @@ def get_lib():
     lib.read_coeff_scan.argtypes = [ctypes.POINTER(BrStruct),
                                     ctypes.c_void_p, ctypes.c_int,
                                     ctypes.c_int]
+    lib.plan_frame_turbo.restype = ctypes.c_long
+    lib.plan_frame_turbo.argtypes = [ctypes.POINTER(ParseCtx),
+                                     ctypes.POINTER(TurboPlan)]
+    lib.emit_frame_turbo.restype = ctypes.c_long
+    lib.emit_frame_turbo.argtypes = [ctypes.POINTER(ParseCtx),
+                                     ctypes.POINTER(BwStruct),
+                                     ctypes.POINTER(TurboEmit)]
     _lib = lib
     return _lib
 
@@ -62,6 +72,13 @@ class BrStruct(ctypes.Structure):
     """Mirror of br_t in thor_native.h (the C bit reader)."""
     _fields_ = [("data", ctypes.c_char_p), ("nbytes", ctypes.c_long),
                 ("bitpos", ctypes.c_long)]
+
+
+class BwStruct(ctypes.Structure):
+    """Mirror of bw_t in thor_native.h (the C bit writer)."""
+    _fields_ = [("buf", ctypes.c_void_p), ("cap", ctypes.c_long),
+                ("bytepos", ctypes.c_long), ("bitbuf", ctypes.c_uint32),
+                ("bitrest", ctypes.c_int)]
 
 
 _i32p = ctypes.POINTER(ctypes.c_int32)
@@ -127,3 +144,24 @@ def i16p(arr):
 
 def i64p(arr):
     return arr.ctypes.data_as(_i64p)
+
+
+class TurboPlan(ctypes.Structure):
+    """Mirror of turbo_plan_t in blockemit.c."""
+    _fields_ = [
+        ("choice", _i32p * 5), ("mv_skip", _i32p * 5),
+        ("mv_int", _i32p * 5), ("mv_int1", _i32p * 5),
+        ("imode", _i32p * 5), ("gw", ctypes.c_int32 * 5),
+        ("is_b", ctypes.c_int32), ("r0i", ctypes.c_int32),
+        ("r1i", ctypes.c_int32), ("qp", ctypes.c_int32),
+        ("qpc", ctypes.c_int32),
+        ("tb", _i32p * 5),
+    ]
+
+
+class TurboEmit(ctypes.Structure):
+    """Mirror of turbo_emit_t in blockemit.c."""
+    _fields_ = [
+        ("icq", _i16p), ("icb", _i32p),
+        ("S", ctypes.c_long), ("L", ctypes.c_long),
+    ]

@@ -1,22 +1,178 @@
-"""Decoder command line of the port, compatible with Thordec.
+"""Command line of the port, compatible with Thorenc/Thordec.
 
 Usage:
+  python -m thor_tpu_torch.cli enc -turbo 1 [Thorenc flags...]
   python -m thor_tpu_torch.cli dec str.bit out.yuv
 
-A copy of thor_tpu/cli.py's decoder half (`_dec_stats_report`,
-`main_dec`: statistics on stdout as Thordec prints them) on the port's
-decode_stream.  It decodes on the CUDA card; the environment variable
-THOR_TORCH_DEVICE names another torch device (`cpu`), as thor_tpu's CLI
-takes JAX_PLATFORMS.  With no card and no other device asked for, it
-exits with status 1 and says so.  The encoder half is not ported yet
-(ROADMAP.md Queue 1, item 10).
+A copy of thor_tpu/cli.py (`main_enc`: per-frame lines and the summary
+as Thorenc prints them; `_dec_stats_report`, `main_dec`: statistics on
+stdout as Thordec prints them) on the port's encode_sequence and
+decode_stream.  The encoder is the turbo encoder: without `-turbo 1`, or
+with `-device_enc 1`, `enc` exits with status 1 and says that thor_tpu's
+exact encoder is not ported.  Both run on the CUDA card; the environment
+variable THOR_TORCH_DEVICE names another torch device (`cpu`), as
+thor_tpu's CLI takes JAX_PLATFORMS.  With no card and no other device
+asked for, they exit with status 1 and say so.
 """
 from __future__ import annotations
 
+import math
 import os
 import sys
 
-from .io_y4m import FRAME_MARKER, y4m_file_header
+import numpy as np
+
+from .io_y4m import (FRAME_MARKER, extract_raw_frames, probe_y4m,
+                     y4m_file_header)
+
+
+def _psnr(a: np.ndarray, b: np.ndarray, maxval: int) -> float:
+    d = a.astype(np.int64) - b.astype(np.int64)
+    mse = float((d * d).sum()) / (maxval * maxval * a.size)
+    return -10.0 * math.log10(mse) if mse > 0 else float("inf")
+
+
+def main_enc(argv, device):
+    from .enc.params import EncParams, apply_args
+    from .enc.encoder import encode_sequence, NOT_PORTED
+
+    p = EncParams()
+    infile = outfile = reconfile = statfile = None
+    args = []
+    i = 0
+    while i < len(argv):
+        if argv[i] == "-if":
+            infile = argv[i + 1]
+            i += 2
+        elif argv[i] == "-of":
+            outfile = argv[i + 1]
+            i += 2
+        elif argv[i] == "-rf":
+            reconfile = argv[i + 1]
+            i += 2
+        elif argv[i] == "-stat":
+            statfile = argv[i + 1]
+            i += 2
+        else:
+            args.append(argv[i])
+            i += 1
+    apply_args(p, args)
+    if p.turbo != 1 or p.device_enc == 1:
+        print(f"thor_tpu_torch.cli: {NOT_PORTED}", file=sys.stderr)
+        return 1
+    yuv = open(infile, "rb").read()
+    y4m = probe_y4m(yuv)
+    if y4m is not None:
+        # stream header geometry overrides config (enc/strings.c:376-450)
+        for a in ("width", "height", "frame_rate", "subsample",
+                  "aspectnum", "aspectden"):
+            v = getattr(y4m, a)
+            if v is not None:
+                setattr(p, a, v)
+        if y4m.input_bitdepth is not None and y4m.input_bitdepth > 8:
+            p.input_bitdepth = y4m.input_bitdepth
+            p.frame_bitdepth = 16
+    p.validate()
+    bpp = 1 + (p.input_bitdepth > 8)
+    ys = p.width * p.height
+    cs = ((ys >> (2 * (p.subsample != 444))) << (p.subsample == 422)) \
+        * (p.subsample != 400)
+    fsize = (ys + 2 * cs) * bpp
+    if y4m is not None:
+        yuv = extract_raw_frames(yuv, y4m, fsize)
+
+    from .enc.encoder import I_FRAME, P_FRAME
+
+    maxval = (1 << p.input_bitdepth) - 1
+    dt = np.uint16 if p.input_bitdepth > 8 else np.uint8
+    stats = {"n": 0, "bits": 0, "psnr": [0.0, 0.0, 0.0]}
+
+    def frame_psnr(rec, orig_frame):
+        r = np.frombuffer(rec, dt)
+        o = np.frombuffer(yuv, dt, count=r.size, offset=orig_frame * fsize)
+        ys2 = ys
+        vals = [_psnr(r[:ys2], o[:ys2], maxval)]
+        if p.subsample != 400:
+            half = (r.size - ys2) // 2
+            vals.append(_psnr(r[ys2:ys2 + half], o[ys2:ys2 + half], maxval))
+            vals.append(_psnr(r[ys2 + half:], o[ys2 + half:], maxval))
+        else:
+            vals += [0.0, 0.0]
+        return vals
+
+    def progress(fnum, ftype, info):
+        # per-frame line mirroring the reference's stdout (mainenc.c:569-592)
+        stats["n"] += 1
+        stats["bits"] += info["bits"]
+        if p.snrcalc:
+            py, pu, pv = frame_psnr(info["rec"], info["orig_frame"])
+        else:
+            py = pu = pv = 0.0
+        for k, v in enumerate((py, pu, pv)):
+            stats["psnr"][k] += v
+        tc = "I" if ftype == I_FRAME else ("P" if ftype == P_FRAME else "B")
+        line = "%4d %s %4d %10d %10.4f %8.4f %8.4f " % (
+            fnum, tc, info["qp"], info["bits"], py, pu, pv)
+        ra = info["ref_array"]
+        rfn = info["ref_frame_nums"]
+        for r in range(info["num_ref"]):
+            if ra[r] == -1:
+                line += "I(%d,%d) " % (ra[r + 1], ra[r + 2])
+            else:
+                line += "%3d" % ra[r]
+        line += "   " * (p.max_num_ref - info["num_ref"]) + " | "
+        for r in range(info["num_ref"]):
+            if ra[r] == -1:
+                line += "I(%d,%d)" % (rfn[r + 1], rfn[r + 2])
+            else:
+                line += "%3d" % rfn[r]
+        print(line)
+
+    # "SH:" line + header bits counted into kbps (mainenc.c:219-225)
+    from .bitstream import BitWriter
+    from .enc.writer import write_sequence_header
+    _bw = BitWriter()
+    write_sequence_header(_bw, p)
+    stats["bits"] += _bw.get_bit_pos()
+    print("SH:  %4d bits" % _bw.get_bit_pos())
+
+    bits, recon = encode_sequence(p, yuv, progress=progress, device=device)
+    if outfile:
+        open(outfile, "wb").write(bits)
+    if reconfile:
+        with open(reconfile, "wb") as f:
+            if reconfile.endswith(".y4m"):
+                f.write(y4m_file_header(p.width, p.height, p.frame_rate,
+                                        p.aspectnum, p.aspectden,
+                                        p.subsample, p.input_bitdepth))
+                rs = len(recon) // max(1, stats["n"])
+                for i in range(stats["n"]):
+                    f.write(FRAME_MARKER)
+                    f.write(recon[i * rs:(i + 1) * rs])
+            else:
+                f.write(recon)
+
+    # sequence summary (mainenc.c:644-651) + cumulative stat file
+    # (mainenc.c:653-672)
+    n = max(1, stats["n"])
+    kbps = 0.001 * p.frame_rate * stats["bits"] / n
+    print("------------------- Average data for all frames "
+          "------------------------------")
+    print(f"kbps            : {kbps:12.3f}")
+    print(f"PSNR Y          : {stats['psnr'][0] / n:12.3f}")
+    print(f"PSNR U          : {stats['psnr'][1] / n:12.3f}")
+    print(f"PSNR V          : {stats['psnr'][2] / n:12.3f}")
+    print("-----------------------------------------------------------"
+          "-------------------")
+    if statfile:
+        new = not os.path.exists(statfile)
+        with open(statfile, "a") as f:
+            if new:
+                f.write(" NFR     kbps     PSNRY  PSNRU  PSNRV\n")
+            f.write("%4d %12.3f %6.3f %6.3f %6.3f\n" % (
+                p.num_frames, kbps, stats["psnr"][0] / n,
+                stats["psnr"][1] / n, stats["psnr"][2] / n))
+    return 0
 
 
 def _dec_stats_report(bc, max_num_ref):
@@ -150,7 +306,8 @@ def main_dec(argv, device):
 
 
 def main():
-    if len(sys.argv) < 4 or sys.argv[1] != "dec":
+    if len(sys.argv) < 3 or sys.argv[1] not in ("enc", "dec") or (
+            sys.argv[1] == "dec" and len(sys.argv) < 4):
         print(__doc__)
         return 2
     from .dec.decoder import resolve_device
@@ -159,6 +316,8 @@ def main():
     except RuntimeError as e:
         print(f"thor_tpu_torch.cli: {e}", file=sys.stderr)
         return 1
+    if sys.argv[1] == "enc":
+        return main_enc(sys.argv[2:], device)
     return main_dec(sys.argv[2:], device)
 
 

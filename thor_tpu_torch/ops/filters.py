@@ -10,6 +10,8 @@ original module imports JAX at the top, and the port's decoder imports
 this module in its place.
 The device functions are torch, with integer arithmetic throughout;
 every pass is a dense masked stencil over the whole plane, as in JAX.
+`cdef_search_sums` is the encoder's CDEF strength trial (the turbo
+encoder's filter search, enc/filters_rdo.py).
 """
 from __future__ import annotations
 
@@ -428,6 +430,44 @@ def cdef_plane(src, dirs, var, level, sec_strength, mask, bs: int,
     y = s + ((8 + total - (total < 0).to(torch.int32)) >> 4)
     out = torch.maximum(mn, torch.minimum(mx, y))
     return torch.where(mask, out, s)
+
+
+def cdef_search_sums(src, org, dirs, var, levels, secs, plane: int,
+                     bs: int, pri_damping: int, sec_damping: int,
+                     coeff_shift: int):
+    """Per-strength-candidate CDEF trial sums for the encoder search
+    (enc/encode_frame.c:228-419; thor_tpu/ops/filters.py:492): filter the
+    whole plane once per candidate (a host loop over the candidate list,
+    where JAX maps over it) and reduce to per-block sums.
+
+    src/org: [ph,pw] int32 (ph,pw multiples of bs); dirs/var: per-block
+    grids [ph/bs, pw/bs]; levels/secs: the G candidate strengths (host
+    integers).  Returns luma: [G, 3, nby, nbx] int64 (sum_d, sum_d^2,
+    sum_d*s); chroma: [G, nby, nbx] int64 SSD."""
+    ph, pw = src.shape
+    nby, nbx = ph // bs, pw // bs
+    ones = torch.ones((ph, pw), dtype=torch.bool, device=src.device)
+    o64 = org.to(torch.int64)
+
+    def bsum(a):
+        return a.reshape(nby, bs, nbx, bs).sum(dim=(1, 3))
+
+    outs = []
+    for lvl_s, sec_s in zip(levels, secs):
+        lvl = torch.full(dirs.shape, int(lvl_s), dtype=torch.int32,
+                         device=src.device)
+        sec = torch.full(dirs.shape, int(sec_s), dtype=torch.int32,
+                         device=src.device)
+        out = cdef_plane(src, dirs, var, lvl, sec, ones, bs, plane,
+                         pri_damping, sec_damping,
+                         coeff_shift).to(torch.int64)
+        if plane == 0:
+            outs.append(torch.stack([bsum(out), bsum(out * out),
+                                     bsum(out * o64)]))
+        else:
+            d = out - o64
+            outs.append(bsum(d * d))
+    return torch.stack(outs)
 
 
 def cdef_block_maps(dd, presets_per_fb, width_l, height_l, plane, sub):
