@@ -5,6 +5,7 @@
     python3 chip_smoke.py --time-mc DIR
     python3 chip_smoke.py --profile-tempinterp
     python3 chip_smoke.py --turbo
+    python3 chip_smoke.py --exact
 
 With no arguments it runs the phases below; any failure raises and the
 exit code is non-zero:
@@ -69,6 +70,21 @@ exit code is non-zero:
      the card, each byte-equal to thor_tpu's stream in
      tests/torch_turbo/, the LC one with the torch operations of each
      encoder function counted per call.
+  9. the exact host-RDO encoder (thor_tpu_torch.encode_sequence, the
+     default turbo=0) on the card, at the goldens' sizes (its SB loop is
+     numpy on the host; the frame tail's deblock, CDEF and CLPF passes
+     run on the card): tiny64_ldblc, c444_128 with turbo=1 (every frame
+     falls back from turbo, said once on stderr) and hdb9_128 (B
+     frames), each stream and recon byte-equal to tests/golden and
+     decoded back to the recon by the port's decoder on the card; then
+     ra_ir2_cdef of tests/test_torch_turbo.py (turbo I/P frames, host-RDO
+     interp_ref=2 B frames, CDEF on), whose stream and recon must hash to
+     thor_tpu's in tests/torch_turbo/fixtures.json.  Printed per encode:
+     the frames by route, seconds per frame in the SB loop (or turbo's
+     decide + finalize) and in the tail, with its deblock, CDEF and CLPF
+     parts synchronised, and the launches over that encode alone (none on
+     the golden encodes; the luma and the one-plane chroma kernel on the
+     mixed one's turbo P frames).
 The kernels' times are device times: the launches queue behind a sleeping
 kernel, so the events time the card's work and not the Python that issues
 it (`call_ms`, one call timed alone, includes that; `kernel_ms` is the
@@ -80,7 +96,7 @@ results, the last line {"ok": true, "device": {...}}.
 `time_mc`), for an A/B of two checkouts on one card.
 `--profile-tempinterp` traces one 1080p temporal interpolation with
 torch.profiler instead (see `profile_tempinterp`).
-`--turbo` builds the kernels and runs phase 8 alone.
+`--turbo` builds the kernels and runs phase 8 alone, `--exact` phase 9.
 """
 import argparse
 import hashlib
@@ -140,19 +156,24 @@ OPS_PER_S = 67e12
 SRC = "thor_tpu_torch/csrc/"
 KERNELS = {   # name: (source, the Pallas call it replaces, launch counter
     #                in ops/mc.py, the launches each driven path must make:
-    #                the two bench decodes and the turbo encode at least
-    #                (none where 0), the tile pipeline exactly)
+    #                the two bench decodes, the turbo encode and phase 9's
+    #                encodes at least (none where 0), the tile pipeline
+    #                exactly; the host-RDO encodes launch none)
     "mc_luma_cells": (SRC + "mc_luma.cu", "thor_tpu/ops/mc_pallas.py:164",
                       "LUMA_LAUNCHES", {"bench_decode": 1,
                                         "tile_pipeline": 3,
                                         "unfused_decode": 1,
-                                        "turbo_encode": 1}),
+                                        "turbo_encode": 1,
+                                        "exact_encode": 0,
+                                        "mixed_encode": 1}),
     "mc_chroma_uv_cells": (SRC + "mc_chroma.cu",
                            "thor_tpu/ops/mc_pallas.py:385",
                            "CHROMA_UV_LAUNCHES", {"bench_decode": 1,
                                                   "tile_pipeline": 1,
                                                   "unfused_decode": 0,
-                                                  "turbo_encode": 0}),
+                                                  "turbo_encode": 0,
+                                                  "exact_encode": 0,
+                                                  "mixed_encode": 0}),
     # the one-plane case of thor_mc_chroma_cells: the two-stage executor
     # and the turbo encoder's finalizer call it once per plane and list;
     # the tile pipeline takes it when the tile count is no multiple of 16
@@ -160,7 +181,8 @@ KERNELS = {   # name: (source, the Pallas call it replaces, launch counter
     "mc_chroma_cells": (SRC + "mc_chroma.cu",
                         "thor_tpu/ops/mc_pallas.py:274", "CHROMA_LAUNCHES",
                         {"bench_decode": 0, "tile_pipeline": 2,
-                         "unfused_decode": 1, "turbo_encode": 1}),
+                         "unfused_decode": 1, "turbo_encode": 1,
+                         "exact_encode": 0, "mixed_encode": 1}),
 }
 
 
@@ -175,7 +197,7 @@ def read_launches(MC):
 
 
 def check_launches(launches, path):
-    """A bench decode must launch each kernel its route runs, and none of
+    """A driven path must launch each kernel its route runs, and none of
     the others."""
     for name, (_, _, _, need) in KERNELS.items():
         if (launches[name] > 0) != (need[path] > 0):
@@ -884,6 +906,72 @@ def fixture_clip(W, H, N, seed):
     return b"".join(out)
 
 
+# the clips of tests/conftest.py that phase 9 encodes (copies: the smoke
+# imports nothing of tests/, whose conftest imports thor_tpu and jax;
+# tests/test_torch_host.py holds them byte-equal)
+def make_tiny64(n=6):
+    """Deterministic 64x64 test clip (matches tests/golden generation)."""
+    import numpy as np
+    W = H = 64
+    rng = np.random.default_rng(42)
+    frames = []
+    yy, xx = np.mgrid[0:H, 0:W]
+    for t in range(n):
+        y = ((xx * 3 + t * 7) % 256).astype(np.uint8)
+        y[(yy + xx + t) % 17 == 0] = 30
+        y[20:40, 10 + 2 * t:30 + 2 * t] = rng.integers(
+            0, 256, size=(20, 20)).astype(np.uint8)
+        u = ((yy[:H // 2, :W // 2] * 2 + t * 3) % 256).astype(np.uint8)
+        v = np.full((H // 2, W // 2), 100 + t, dtype=np.uint8)
+        frames.append(np.concatenate([y.ravel(), u.ravel(), v.ravel()]))
+    return np.concatenate(frames).tobytes()
+
+
+def make_hdb9(n=9):
+    """128x96 clip for HDB/RA/HBD encoder tests."""
+    import numpy as np
+    W, H = 128, 96
+    rng = np.random.default_rng(55)
+    yy, xx = np.mgrid[0:H, 0:W]
+    fr = []
+    for t in range(n):
+        y = ((xx * 2 + yy + t * 3) % 256).astype(np.uint8)
+        y[10:50, 10 + 3 * t:60 + 3 * t] = rng.integers(
+            0, 256, (40, 50)).astype(np.uint8)
+        u = ((xx[:H // 2, :W // 2] + 2 * t) % 256).astype(np.uint8)
+        v = ((yy[:H // 2, :W // 2] * 3 - t) % 256).astype(np.uint8)
+        fr.append(np.concatenate([y.ravel(), u.ravel(), v.ravel()]))
+    return np.concatenate(fr).tobytes()
+
+
+def make_c444(n=4):
+    """128x96 4:4:4 clip (c444_128's)."""
+    import numpy as np
+    W, H = 128, 96
+    yy, xx = np.mgrid[0:H, 0:W]
+    fr = []
+    for t in range(n):
+        y = ((xx * 2 + yy + t * 3) % 256).astype(np.uint8)
+        u = ((xx + t) % 256).astype(np.uint8)
+        v = ((yy * 2 - t) % 256).astype(np.uint8)
+        fr.append(np.concatenate([y.ravel(), u.ravel(), v.ravel()]))
+    return np.concatenate(fr).tobytes()
+
+
+# phase 9: the exact encoder's golden encodes (name, clip generator, W, H,
+# frames, config file in tests/golden, parameters over it, turbo) and the
+# mixed configuration of tests/test_torch_turbo.py (turbo I/P frames,
+# host-RDO interp_ref=2 B frames, CDEF on), held to its fixture
+EXACT_GOLDENS = (
+    ("tiny64_ldblc", make_tiny64, 64, 64, 6, "LDB_low_complexity", {}, 0),
+    # every frame falls back from turbo: the golden all the same
+    ("c444_128", make_c444, 128, 96, 4, "LDB_low_complexity",
+     {"subsample": 444}, 1),
+    ("hdb9_128", make_hdb9, 128, 96, 9, "HDB_low_complexity", {}, 0))
+MIXED = ("ra_ir2_cdef", 128, 96, 10, 5,
+         dict(TURBO_FIXTURES["ra_bframes"][4], interp_ref=2, cdef=2))
+
+
 def lc1080_params(N=6):
     from thor_tpu_torch.enc.params import EncParams
     return EncParams(width=W1080, height=H1080, num_frames=N, turbo=1,
@@ -1192,6 +1280,151 @@ def phase_turbo(device, card):
                            "lc_segments": lc_segments}
 
 
+def phase_exact(device, card):
+    """Phase 9: the exact host-RDO encoder on the card (see the module
+    docstring); returns the launches over the mixed encode and the
+    per-encode results."""
+    import contextlib
+    import io
+    import torch
+    from thor_tpu_torch import decode_stream, encode_sequence
+    from thor_tpu_torch.enc import encoder as PE
+    from thor_tpu_torch.enc import filters_rdo as FR
+    from thor_tpu_torch.enc import turbo as PT
+    from thor_tpu_torch.enc.params import EncParams, parse_config_file
+    from thor_tpu_torch.ops import mc as MC
+
+    # a frame's parts: the whole encode_frame, turbo's decide + finalize
+    # (turbo frames), the filter tail and, within it, its three filters
+    # (each synchronised on both sides)
+    parts = {"frame": (PE.Encoder, "encode_frame"),
+             "turbo": (PT, "encode_frame_turbo"),
+             "tail": (PE.Encoder, "_encode_frame_tail"),
+             "deblock": (PE.Encoder, "_deblock_device"),
+             "cdef_search": (FR, "cdef_search"),
+             "cdef_apply": (FR, "apply_cdef_enc"),
+             "clpf_search": (FR, "clpf_test_frame"),
+             "clpf_apply": (PE.Encoder, "_clpf_apply")}
+    saved = {k: getattr(m, a) for k, (m, a) in parts.items()}
+
+    def encode(params, yuv):
+        frames = []
+
+        def timed(key):
+            fn = saved[key]
+
+            def run(*args, **kw):
+                if key == "frame":
+                    frames.append(dict.fromkeys(parts, 0.0))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fn(*args, **kw)
+                torch.cuda.synchronize()
+                frames[-1][key] += time.perf_counter() - t0
+                return r
+            return run
+
+        err = io.StringIO()
+        reset_launches(MC)
+        for k, (m, a) in parts.items():
+            setattr(m, a, timed(k))
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stderr(err):
+                bs, rec = encode_sequence(params, yuv, device=device)
+        finally:
+            for k, (m, a) in parts.items():
+                setattr(m, a, saved[k])
+        wall = time.time() - t0
+        launches = read_launches(MC)
+        sys.stderr.write(err.getvalue())
+        per = []
+        for fr in frames:
+            route = "turbo" if fr["turbo"] else "host_rdo"
+            body = fr["turbo"] if fr["turbo"] else fr["frame"] - fr["tail"]
+            per.append({"route": route, "frame_s": fr["frame"],
+                        ("turbo_s" if fr["turbo"] else "sb_loop_s"): body,
+                        "tail_s": fr["tail"], "deblock_s": fr["deblock"],
+                        "cdef_s": fr["cdef_search"] + fr["cdef_apply"],
+                        "clpf_s": fr["clpf_search"] + fr["clpf_apply"],
+                        **{k + "_s": fr[k] for k in (
+                            "cdef_search", "cdef_apply", "clpf_search",
+                            "clpf_apply")}})
+        return bs, rec, per, launches, err.getvalue(), wall
+
+    def report(name, n, per, launches, wall):
+        routes = {r: sum(f["route"] == r for f in per)
+                  for r in ("turbo", "host_rdo")}
+        host = [f for f in per if f["route"] == "host_rdo"]
+        mean = {k: statistics.fmean(f[k] for f in host)
+                for k in host[0] if k != "route"} if host else {}
+        print(f"phase 9: {name} ({n} frames, {wall:.3f} s): frames by route "
+              f"{routes}; launches {launches}; mean s per host-RDO frame "
+              f"{json.dumps(mean)}; card {card}", flush=True)
+        for i, f in enumerate(per):
+            print(f"phase 9: {name} frame {i} (coding order): "
+                  f"{json.dumps(f)}", flush=True)
+        return {"frames": n, "wall_s": wall, "routes": routes,
+                "launches": launches, "host_rdo_mean_s": mean,
+                "per_frame": per}
+
+    out = {}
+    gdir = os.path.join(REPO, "tests", "golden")
+    for name, gen, W, H, n, cfg, over, turbo in EXACT_GOLDENS:
+        with open(os.path.join(gdir, name + ".bit"), "rb") as f:
+            want = f.read()
+        with open(os.path.join(gdir, name + "_rec.yuv"), "rb") as f:
+            want_rec = f.read()
+        params = parse_config_file(
+            os.path.join(gdir, f"config_{cfg}.txt"), width=W, height=H,
+            num_frames=n, qp=32, frame_rate=30.0, turbo=turbo, **over)
+        bs, rec, per, launches, err, wall = encode(params, gen(n))
+        if bs != want or rec != want_rec:
+            raise AssertionError(f"phase 9: {name}: the card's stream or "
+                                 f"recon differs from the golden")
+        falls = err.count("turbo unavailable for this frame")
+        if falls != (1 if turbo else 0):
+            raise AssertionError(f"phase 9: {name}: the fallback line was "
+                                 f"printed {falls} times")
+        if any(f["route"] != "host_rdo" for f in per) or len(per) != n:
+            raise AssertionError(f"phase 9: {name}: a frame missed the "
+                                 f"host RDO")
+        check_launches(launches, "exact_encode")
+        out[name] = report(name, n, per, launches, wall)
+        t0 = time.time()
+        _, frames = decode_stream(bs, device=device)
+        if b"".join(frames) != rec:
+            raise AssertionError(f"phase 9: {name}: the port's decoder on "
+                                 f"the card does not reproduce the recon")
+        print(f"phase 9: {name}: stream and recon byte-equal to the golden"
+              f"{' (turbo=1, fallback said once)' if turbo else ''}; the "
+              f"card's decoder reproduces the recon ({time.time() - t0:.3f}"
+              f" s)", flush=True)
+
+    name, W, H, n, seed, kw = MIXED
+    with open(os.path.join(REPO, "tests", "torch_turbo",
+                           "fixtures.json")) as f:
+        meta = json.load(f)[name]
+    args = dict(LC_KW)
+    args.update(kw)
+    bs, rec, per, launches, err, wall = encode(
+        EncParams(width=W, height=H, num_frames=n, turbo=1, **args),
+        fixture_clip(W, H, n, seed))
+    if (hashlib.sha256(bs).hexdigest(), hashlib.sha256(rec).hexdigest()) \
+            != (meta["stream_sha256"], meta["rec_sha256"]):
+        raise AssertionError(f"phase 9: {name}: the card's stream or recon "
+                             f"differs from thor_tpu's")
+    routes = [f["route"] for f in per]
+    if routes != ["turbo"] * 2 + ["host_rdo"] * 7 + ["turbo"]:
+        raise AssertionError(f"phase 9: {name}: routes {routes}, expected "
+                             f"turbo I/P frames and host-RDO B frames")
+    check_launches(launches, "mixed_encode")
+    out[name] = report(name, n, per, launches, wall)
+    print(f"phase 9: {name}: stream and recon sha256 equal thor_tpu's "
+          f"(turbo I/P, host-RDO B frames, CDEF on)", flush=True)
+    return launches, out
+
+
 class _Captured(Exception):
     pass
 
@@ -1307,6 +1540,9 @@ def main():
     ap.add_argument("--turbo", action="store_true",
                     help="build the kernels and run phase 8 (the turbo "
                     "encoder) alone")
+    ap.add_argument("--exact", action="store_true",
+                    help="build the kernels and run phase 9 (the exact "
+                    "encoder) alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1332,6 +1568,10 @@ def main():
         _, _, turbo = phase_turbo(device, card)
         print(json.dumps({"turbo_encode": turbo}))
         return 0
+    if args.exact:
+        _, exact = phase_exact(device, card)
+        print(json.dumps({"exact_encode": exact}))
+        return 0
     rand = phase_kernels(device, card)
     phase_goldens(device)
     launches, real, frames, fused_times = phase_main_path(device, card)
@@ -1341,6 +1581,7 @@ def main():
     unfused_launches, k2_err, unfused = phase_unfused(device, card, real,
                                                       fused_times)
     turbo_launches, turbo_cells, turbo = phase_turbo(device, card)
+    mixed_launches, exact = phase_exact(device, card)
 
     # each kernel's headline numbers are taken on the cells of a
     # real-stream path that launches it, frame 1 of the bench stream: the
@@ -1361,7 +1602,11 @@ def main():
         by_path = {"bench_decode": launches[name],
                    "tile_pipeline": tile_launches[name],
                    "unfused_decode": unfused_launches[name],
-                   "turbo_encode": turbo_launches[name]}
+                   "turbo_encode": turbo_launches[name],
+                   "exact_encode": sum(e["launches"][name]
+                                       for k, e in exact.items()
+                                       if k != MIXED[0]),
+                   "mixed_encode": mixed_launches[name]}
         if name in turbo_cells:
             sets["turbo finalizer frame 1"] = turbo_cells[name]
         kernels.append({
@@ -1383,6 +1628,7 @@ def main():
                             for what, x in sets.items()}})
     print(json.dumps({"unfused_decode": unfused}))
     print(json.dumps({"turbo_encode": turbo}))
+    print(json.dumps({"exact_encode": exact}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -581,3 +581,30 @@ def test_turbo_encodes_on_the_card_equal_thor_tpus_streams(cuda):
     # one P frame: the luma kernel once, the one-plane kernel for U and V
     assert (after[0] - before[0], after[1] - before[1],
             after[2] - before[2]) == (1, 2, 0)
+
+
+@pytest.mark.cuda
+def test_exact_encoder_on_the_card_writes_the_golden(cuda):
+    """tiny64_ldblc with the exact host-RDO encoder (turbo=0) and its frame
+    tail on the card: the reference's golden stream and recon, and no MC
+    kernel launched (the host RDO predicts in numpy)."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as CS
+    from thor_tpu_torch import encode_sequence
+    from thor_tpu_torch.enc.params import parse_config_file
+    gdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "golden")
+    p = parse_config_file(os.path.join(gdir, "config_LDB_low_complexity.txt"),
+                          width=64, height=64, num_frames=6, qp=32,
+                          frame_rate=30.0)
+    before = MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+    bs, rec = encode_sequence(p, CS.make_tiny64(6), device=cuda)
+    with open(os.path.join(gdir, "tiny64_ldblc.bit"), "rb") as f:
+        assert bs == f.read()
+    with open(os.path.join(gdir, "tiny64_ldblc_rec.yuv"), "rb") as f:
+        assert rec == f.read()
+    assert (MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES,
+            MC.CHROMA_UV_LAUNCHES) == before

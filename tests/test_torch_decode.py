@@ -155,7 +155,7 @@ def test_package_never_imports_jax():
     assert srcs
     # the encoder's modules are among them
     for mod in ("encoder", "turbo", "turbo_final", "turbo_native",
-                "filters_rdo", "params", "writer"):
+                "filters_rdo", "params", "writer", "me", "rc"):
         assert os.path.join(REPO, "thor_tpu_torch", "enc", mod + ".py") \
             in srcs, mod
     for src in srcs + [os.path.join(REPO, "chip_smoke.py"),

@@ -5,6 +5,7 @@ build; and the port's entry points decode on the CUDA card unless the
 caller asks for the CPU."""
 import copy
 import os
+import re
 import subprocess
 import sys
 
@@ -68,7 +69,8 @@ def test_table_functions_equal_thor_tpu():
     "spec/inter.py", "spec/filters.py", "spec/tempinterp.py",
     "spec/intra.py", "spec/cfl.py", "spec/transform_quant.py",
     "dec/native_parse.py", "qmtx.py", "qm_tables.npz",
-    "enc/params.py", "enc/writer.py", "_native/blockemit.c"])
+    "enc/params.py", "enc/writer.py", "_native/blockemit.c", "enc/me.py",
+    "enc/rc.py"])
 def test_copies_equal_thor_tpu(name):
     """The files the port copies verbatim are byte-equal to thor_tpu's
     (tables.py, the loader, decoder.py and cli.py differ by design and
@@ -77,6 +79,31 @@ def test_copies_equal_thor_tpu(name):
         ref = f.read()
     with open(os.path.join(REPO, "thor_tpu_torch", name), "rb") as f:
         assert f.read() == ref
+
+
+@pytest.mark.parametrize("name, n", [("make_tiny64", 6), ("make_c444", 4),
+                                     ("make_hdb9", 9)])
+def test_smoke_clips_equal_conftests(name, n):
+    """chip_smoke.py's copies of the clip generators (it cannot import
+    conftest.py, which imports jax) give conftest's bytes."""
+    import chip_smoke
+    import conftest
+    assert getattr(chip_smoke, name)(n) == getattr(conftest, name)(n)
+
+
+def test_no_message_names_item_11_but_11b():
+    """What is left of ROADMAP.md item 11 is 11b (the wavefront device
+    encoder); no message of the encoder or the CLI names item 11 else."""
+    paths = [os.path.join(REPO, "thor_tpu_torch", "cli.py")]
+    enc = os.path.join(REPO, "thor_tpu_torch", "enc")
+    paths += [os.path.join(enc, n) for n in sorted(os.listdir(enc))
+              if n.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            text = " ".join(f.read().split())
+        for m in re.finditer(r"items? 11(\w*)", text):
+            assert m.group(1) == "b", (path, text[m.start():m.end() + 20])
+        assert "items 12 and 11" not in text, path
 
 
 def test_native_library_is_the_ports_own(monkeypatch):

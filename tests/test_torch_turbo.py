@@ -3,7 +3,14 @@ byte, on the CPU.
 
 Five configurations of tests/test_turbo.py (its clips and parameters):
 LC; HE with CDEF; the RA B-frame GOP with interp_ref=1 and bipred; qmtx;
-10-bit + qmtx + tb-split HE with B frames.  For each:
+10-bit + qmtx + tb-split HE with B frames.  A sixth, ra_ir2_cdef, is
+the RA GOP with interp_ref=2 and CDEF on: turbo codes its I and P
+frames and thor_tpu's exact host encoder its B frames (turbo rejects
+interp_ref=2 B frames), so that both kinds of frame go through the CDEF
+search of one stream.  Its stream and recon hash are held to thor_tpu's;
+it has no decoder round trip (the reference's host RDO desynchronises
+its own CDEF header there, docs/PARITY.md) and no Python walk.  For the
+five others:
 - the port's stream is byte-equal to thor_tpu's, kept in
   tests/torch_turbo/<name>.bit, and its recon hashes to thor_tpu's recon
   sha256 in tests/torch_turbo/fixtures.json;
@@ -19,18 +26,21 @@ configuration with thor_tpu in a fresh interpreter
 (and test_torch_turbo_ops.py's stored outputs to thor_tpu's);
 `python tests/test_torch_turbo.py` writes the streams.
 """
+import contextlib
 import copy
 import hashlib
+import io
 import json
 import os
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
-import numpy as np
 import pytest
 import torch
 
+from conftest import make_c444, make_tiny64
+from test_torch_encoder_golden import golden, golden_params
 from test_turbo import LC_KW, _clip, _turbo_encode_subprocess
 from thor_tpu_torch import decode_stream
 from thor_tpu_torch.enc import encoder as PE
@@ -57,7 +67,12 @@ CONFIGS = {   # name: (W, H, frames, seed, parameters over LC_KW)
     "hbd10_qm_he": (128, 96, 4, 21, dict(
         RA_KW, enable_tb_split=1, intra_rdo=1, qmtx=1, qmtx_offset=12,
         bitdepth=10, encoder_speed=0)),
+    "ra_ir2_cdef": (128, 96, 10, 5, dict(RA_KW, interp_ref=2, cdef=2)),
 }
+# the configurations every frame of which turbo codes
+ALL_TURBO = [name for name in CONFIGS if name != "ra_ir2_cdef"]
+FALLBACK = ("thor_tpu_torch: turbo unavailable for this frame (rejecting "
+            "parameter: {}); falling back to the exact host encoder")
 
 
 def _params(name, **over):
@@ -82,19 +97,21 @@ def _fixture(name):
     return bs, meta["rec_sha256"]
 
 
-_NATIVE = {}   # name -> (stream, recon, decisions, interpolated frames)
+_NATIVE = {}   # name -> (stream, recon, decisions, interpolated frames,
+#                        stderr, frame numbers turbo decided)
 
 
 def _native_run(name):
     """The port's encode with the C passes (the default), on the CPU; the
     decisions and interpolated frames it used are kept for the Python
-    walk's run."""
+    walk's run, and what it printed on stderr."""
     if name in _NATIVE:
         return _NATIVE[name]
-    decisions, interps = [], []
+    decisions, interps, turbo_frames = [], [], []
     decide, interp = PT.decide_frame, PTI.interpolate_frames
 
     def keep_decision(enc):
+        turbo_frames.append(enc.fi.frame_num)
         d = decide(enc)
         decisions.append(copy.deepcopy(d))
         return d
@@ -103,26 +120,29 @@ def _native_run(name):
         interp(new, *args, **kw)
         interps.append(copy.deepcopy(new))
 
+    err = io.StringIO()
     PT.decide_frame, PTI.interpolate_frames = keep_decision, keep_interp
     try:
-        bs, rec = PE.encode_sequence(_params(name, turbo=1), _yuv(name),
-                                     device="cpu")
+        with contextlib.redirect_stderr(err):
+            bs, rec = PE.encode_sequence(_params(name, turbo=1), _yuv(name),
+                                         device="cpu")
     finally:
         PT.decide_frame, PTI.interpolate_frames = decide, interp
-    _NATIVE[name] = (bs, rec, decisions, interps)
+    _NATIVE[name] = (bs, rec, decisions, interps, err.getvalue(),
+                     turbo_frames)
     return _NATIVE[name]
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_stream_equals_thor_tpu(name):
-    bs, rec, _, _ = _native_run(name)
+    bs, rec = _native_run(name)[:2]
     want, rec_sha = _fixture(name)
     assert len(bs) == len(want)
     assert bs == want
     assert hashlib.sha256(rec).hexdigest() == rec_sha
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
+@pytest.mark.parametrize("name", ALL_TURBO)
 def test_decoder_reproduces_the_recon(name):
     bs, rec_sha = _fixture(name)
     _, frames = decode_stream(bs, device="cpu")
@@ -130,11 +150,11 @@ def test_decoder_reproduces_the_recon(name):
     assert b"".join(frames) == _native_run(name)[1]
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
+@pytest.mark.parametrize("name", ALL_TURBO)
 def test_python_walk_equals_native(name, monkeypatch):
     """The twin of tests/test_turbo.py:test_turbo_native_emit_matches_python:
     plan_frame + emit_nodes give the bytes of the C plan/emit passes."""
-    bs_c, rec_c, decisions, interps = _native_run(name)
+    bs_c, rec_c, decisions, interps = _native_run(name)[:4]
     decisions, interps = list(decisions), list(interps)
     walks = []
 
@@ -163,27 +183,43 @@ def test_python_walk_equals_native(name, monkeypatch):
 # ------------------------------------------------------------ refusals
 
 @pytest.mark.parametrize("over, exc, match", [
-    (dict(turbo=0), NotImplementedError, "item 11"),
-    (dict(turbo=1, device_enc=1), NotImplementedError, "item 11"),
-    (dict(turbo=1, subsample=444), ValueError, "subsample!=420"),
-    (dict(turbo=1, bitrate=200), ValueError, "bitrate"),
+    (dict(turbo=1, device_enc=1), NotImplementedError, "item 11b"),
 ])
 def test_unsupported_parameters_raise(over, exc, match):
     p = _params("lc", **over)
-    W, H, N, seed, _ = CONFIGS["lc"]
-    yuv = _clip(W, H, N, seed)
-    if over.get("subsample") == 444:
-        yuv = yuv * 2       # 4:4:4 frames are twice the 4:2:0 size
     with pytest.raises(exc, match=match):
-        PE.encode_sequence(p, yuv, device="cpu")
+        PE.encode_sequence(p, _yuv("lc"), device="cpu")
 
 
-def test_interp_ref2_b_frames_raise():
-    """interp_ref=2 B frames need thor_tpu's host RDO: the I and P frames
-    encode, the first B frame raises with turbo's reason."""
-    p = _params("ra_bframes", turbo=1, interp_ref=2)
-    with pytest.raises(ValueError, match="interp_ref=2"):
-        PE.encode_sequence(p, _yuv("ra_bframes"), device="cpu")
+# ------------------------------------------------------------ fallbacks
+
+@pytest.mark.parametrize("name, clip, over, reason", [
+    ("c444_128", make_c444, dict(subsample=444), "subsample!=420"),
+    ("tiny64_rc", make_tiny64, dict(bitrate=200000),
+     "bitrate (rate control)"),
+])
+def test_turbo_rejects_fall_back_to_host_rdo(name, clip, over, reason,
+                                             capsys):
+    """With turbo=1, every frame of a configuration that turbo does not
+    support takes the exact host encoder: the stream and recon are the
+    reference's golden, and the fallback is said once on stderr."""
+    ref, rr = golden(name)
+    w, h, n = {"c444_128": (128, 96, 4), "tiny64_rc": (64, 64, 6)}[name]
+    bits, recon = PE.encode_sequence(golden_params(w, h, n, turbo=1, **over),
+                                     clip(n), device="cpu")
+    assert bits == ref
+    assert recon == rr
+    assert capsys.readouterr().err.count(FALLBACK.format(reason)) == 1
+
+
+def test_interp_ref2_b_frames_fall_back():
+    """ra_ir2_cdef with turbo=1: turbo codes the I and P frames, the exact
+    host encoder the interp_ref=2 B frames (test_stream_equals_thor_tpu
+    holds the stream to thor_tpu's), and the fallback is said once."""
+    _, _, _, _, err, turbo_frames = _native_run("ra_ir2_cdef")
+    assert turbo_frames == [0, 8, 9]
+    assert err.count(FALLBACK.format("interp_ref=2 (B frames)")) == 1
+    assert err.count("thor_tpu_torch: turbo unavailable") == 1
 
 
 def test_encode_sequence_defaults_to_cuda(monkeypatch):
@@ -229,9 +265,23 @@ def test_cli_enc_writes_thor_tpus_stream(tmp_path):
     assert [ln.split()[:3] for ln in lines[1:1 + N]] == \
         [["0", "I", "30"], ["1", "P", "38"]]
     assert "PSNR Y" in r.stdout and "kbps" in r.stdout
-    # without -turbo 1 the exact encoder is asked for: not ported
-    r = _cli(tmp_path, args[:-2 - len(flags)] + flags)
-    assert r.returncode == 1 and "item 11" in r.stderr
+    # without -turbo 1: the exact host encoder, here with the golden
+    # config file on tiny64_ldblc's clip, writes the reference's golden
+    gold = tmp_path / "tiny64.yuv"
+    gold.write_bytes(make_tiny64(6))
+    cfg = os.path.join(REPO, "tests", "golden",
+                       "config_LDB_low_complexity.txt")
+    exact = ["-cf", cfg, "-if", str(gold), "-of", str(tmp_path / "g.bit"),
+             "-rf", str(tmp_path / "g_rec.yuv"), "-width", "64", "-height",
+             "64", "-n", "6", "-qp", "32", "-f", "30"]
+    r = _cli(tmp_path, exact)
+    assert r.returncode == 0, r.stderr
+    ref, rr = golden("tiny64_ldblc")
+    assert (tmp_path / "g.bit").read_bytes() == ref
+    assert (tmp_path / "g_rec.yuv").read_bytes() == rr
+    # the wavefront device encoder is not ported
+    r = _cli(tmp_path, args + ["-device_enc", "1"])
+    assert r.returncode == 1 and "item 11b" in r.stderr
     # without a card and without THOR_TORCH_DEVICE=cpu: no encode
     r = _cli(tmp_path, args, device=None)
     assert r.returncode == 1 and "THOR_TORCH_DEVICE=cpu" in r.stderr
@@ -267,16 +317,20 @@ def test_fixtures_are_thor_tpus():
 
 
 def test_encodes_without_jax():
-    """A process where `import jax` fails encodes the LC configuration to
-    thor_tpu's stream through encode_sequence, and never loads jax nor
-    anything of thor_tpu."""
+    """A process where `import jax` fails encodes, through
+    encode_sequence, the LC configuration with turbo to thor_tpu's stream
+    and tiny64_ldblc with the exact host encoder (turbo=0, its clip from
+    chip_smoke.py's copy of the generator) to the reference's golden, and
+    never loads jax nor anything of thor_tpu."""
     code = (
         "import sys, hashlib\n"
         "sys.modules['jax'] = None\n"
         "sys.path.insert(0, 'tests')\n"
         "import numpy as np\n"
         "from thor_tpu_torch import encode_sequence\n"
-        "from thor_tpu_torch.enc.params import EncParams\n"
+        "from thor_tpu_torch.enc.params import EncParams, "
+        "parse_config_file\n"
+        "from chip_smoke import make_tiny64\n"
         "rng = np.random.default_rng(11)\n"
         "base = np.clip(np.linspace(30, 200, 128)[None, :] + "
         "np.linspace(0, 50, 128)[:, None] + rng.integers(-10, 10, "
@@ -295,16 +349,23 @@ def test_encodes_without_jax():
         f"p = EncParams(width=128, height=128, num_frames=2, turbo=1, "
         f"**{LC_KW!r})\n"
         "bs, rec = encode_sequence(p, b''.join(out), device='cpu')\n"
+        "p = parse_config_file('tests/golden/config_LDB_low_complexity.txt'"
+        ", width=64, height=64, num_frames=6, qp=32, frame_rate=30.0)\n"
+        "assert p.turbo == 0\n"
+        "gs, grec = encode_sequence(p, make_tiny64(6), device='cpu')\n"
         "bad = [m for m in sys.modules if m == 'thor_tpu' or "
         "m.startswith(('thor_tpu.', 'jax.'))]\n"
-        "print(hashlib.sha256(bs).hexdigest(), bad)\n")
+        "print(hashlib.sha256(bs).hexdigest(), hashlib.sha256(gs)"
+        ".hexdigest(), hashlib.sha256(grec).hexdigest(), bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "1"
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=REPO, env=env, timeout=600)
     assert r.returncode == 0, r.stderr
     want, _ = _fixture("lc")
-    assert r.stdout.split() == [hashlib.sha256(want).hexdigest(), "[]"]
+    gs, grec = golden("tiny64_ldblc")
+    assert r.stdout.split() == [hashlib.sha256(x).hexdigest()
+                                for x in (want, gs, grec)] + ["[]"]
 
 
 if __name__ == "__main__":

@@ -10,8 +10,10 @@ kernels.  The decoder does all that thor_tpu's does: every stream decodes
 (4:2:0, 4:4:4 and mono; 8 to 12 bits; qmtx; temporal interpolation), a
 frame on the fused device route where the stream allows it and on the
 two-stage executor or the host records otherwise (dec/decoder.py).  The
-encoder is thor_tpu's turbo encoder (enc/), byte-identical with its turbo
-streams; thor_tpu's exact encoder is not ported.  Entry points decode and
+encoder (enc/) is thor_tpu's exact host-RDO encoder, byte-identical with
+the reference's goldens, and its turbo encoder, byte-identical with its
+turbo streams, chosen per frame as thor_tpu chooses; thor_tpu's wavefront
+device encoder (`device_enc`) is not ported.  Entry points decode and
 encode on the CUDA card unless the caller asks for the CPU
 (`device="cpu"`); `decode_stream(..., fused=False)` keeps every frame off
 the fused route.
@@ -27,10 +29,11 @@ Layout:
   interpolation; transform.py, quant.py, coeff_cost.py and me_batch.py
   carry the encoder's forward transform, quantizer, bit count and MV
   helpers)
-- enc/: the turbo encoder: frame loop and filter tail (encoder.py), the
-  batched decision pass (turbo.py), the device finalizer with the C or
-  Python plan/emit walks (turbo_final.py, turbo_native.py), the CDEF/CLPF
-  searches (filters_rdo.py), and the copied params.py and writer.py
+- enc/: the encoder: frame loop, the exact host-RDO SB loop and the
+  filter tail (encoder.py), the turbo encoder's batched decision pass
+  (turbo.py) and device finalizer with the C or Python plan/emit walks
+  (turbo_final.py, turbo_native.py), the CDEF/CLPF searches
+  (filters_rdo.py), and the copied params.py, writer.py, me.py and rc.py
 - dec/: the decoder entry point and its routes (decoder.py), the fused
   frame decoder on the device (device_frame.py), the frame plan and the
   two-stage executor (device_pixels.py)

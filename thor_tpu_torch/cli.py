@@ -1,15 +1,16 @@
 """Command line of the port, compatible with Thorenc/Thordec.
 
 Usage:
-  python -m thor_tpu_torch.cli enc -turbo 1 [Thorenc flags...]
+  python -m thor_tpu_torch.cli enc [Thorenc flags...]
   python -m thor_tpu_torch.cli dec str.bit out.yuv
 
 A copy of thor_tpu/cli.py (`main_enc`: per-frame lines and the summary
 as Thorenc prints them; `_dec_stats_report`, `main_dec`: statistics on
 stdout as Thordec prints them) on the port's encode_sequence and
-decode_stream.  The encoder is the turbo encoder: without `-turbo 1`, or
-with `-device_enc 1`, `enc` exits with status 1 and says that thor_tpu's
-exact encoder is not ported.  Both run on the CUDA card; the environment
+decode_stream.  The encoder is thor_tpu's exact host-RDO encoder, or with
+`-turbo 1` the turbo encoder where it supports the frame; with
+`-device_enc 1` (thor_tpu's wavefront device encoder, not ported) `enc`
+exits with status 1 and says so.  Both run on the CUDA card; the environment
 variable THOR_TORCH_DEVICE names another torch device (`cpu`), as
 thor_tpu's CLI takes JAX_PLATFORMS.  With no card and no other device
 asked for, they exit with status 1 and say so.
@@ -57,7 +58,7 @@ def main_enc(argv, device):
             args.append(argv[i])
             i += 1
     apply_args(p, args)
-    if p.turbo != 1 or p.device_enc == 1:
+    if p.device_enc == 1:
         print(f"thor_tpu_torch.cli: {NOT_PORTED}", file=sys.stderr)
         return 1
     yuv = open(infile, "rb").read()

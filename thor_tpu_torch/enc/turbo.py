@@ -23,14 +23,18 @@ Exactness rules the port keeps (the JAX version's arithmetic):
 - gathers take indices as JAX does (`_jidx`: a negative index wraps once,
   then every index is clamped).
 
-Scope: as thor_tpu's (`turbo_reject_reason`).  `decide_frame(pull=False)`
-and `PendingDecision` (the GOP lanes' deferred pull) and the host
-finaliser of `encode_frame_turbo` (THOR_TURBO_FINAL=0) are not ported
-(ROADMAP.md items 12 and 11).
+Scope: as thor_tpu's (`turbo_reject_reason`); a frame outside it takes
+the exact host encoder (`turbo_supported`, enc/encoder.py).
+`decide_frame(pull=False)` and `PendingDecision` (the GOP lanes' deferred
+pull) are not ported (ROADMAP.md item 12), nor is the host finaliser of
+`encode_frame_turbo` that thor_tpu's THOR_TURBO_FINAL=0 selects: the port
+takes no environment switch, and its finalizer emits through the C
+plan/emit passes or their Python walk (turbo_final.NATIVE).
 """
 from __future__ import annotations
 
 import functools
+import sys
 
 import numpy as np
 import torch
@@ -78,6 +82,22 @@ def turbo_reject_reason(enc):
     if fi.frame_type == B_FRAME and p.interp_ref > 1:
         return "interp_ref=2 (B frames)"
     return None
+
+
+def turbo_supported(enc) -> bool:
+    """True when turbo codes the frame; otherwise the frame takes the
+    exact host encoder, and the first such frame of an encoder says so
+    on stderr (a user who asked for turbo must never silently get the
+    much slower host path)."""
+    reason = turbo_reject_reason(enc)
+    if reason is None:
+        return True
+    if not getattr(enc, "_turbo_warned", False):
+        print(f"thor_tpu_torch: turbo unavailable for this frame "
+              f"(rejecting parameter: {reason}); falling back to the "
+              f"exact host encoder (much slower)", file=sys.stderr)
+        enc._turbo_warned = True
+    return False
 
 
 # ---------------------------------------------------------------------------
