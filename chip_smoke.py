@@ -8,6 +8,7 @@
     python3 chip_smoke.py --exact
     python3 chip_smoke.py --device-enc
     python3 chip_smoke.py --multistream
+    python3 chip_smoke.py --me
 
 With no arguments it runs the phases below; any failure raises and the
 exit code is non-zero:
@@ -140,6 +141,20 @@ exit code is non-zero:
      fixture, beside the same encodes one after the other; (e)
      entry.dryrun_multistream on the card.  Launches are counted over
      each of (a)-(d) alone.
+ 12. thor_tpu's lockstep motion search (ops/me_batch.py) on the card at
+     1080p (me1080_inputs): the 8,160 16x16 blocks of frame 1 of phase
+     3's decode against frame 0 padded as the encoder pads it, through
+     motion_estimate_batch three ways (the fast sub-pel path, the
+     telescope with the widesad32 row scan, and speed0's exact sub-pel
+     path), motion_estimate_bi_batch (frame 2 the second reference) and
+     motion_estimate_sync_batch (the 32,640 8x8 sub-PUs); each output
+     must hash to ME1080_SHA256 (thor_tpu's functions on the CPU), with
+     K1's launches counted over each call alone (ME1080_K1: 0, 0, 16,
+     110, 55; K2 and K3 none).  Printed: seconds per call (synchronised
+     on both sides) and torch operations per call of each search; then
+     K1 against its plain version on the two MC calls of the bi
+     search's first persistent slot (ME1080_HELD; 130,560 cells each)
+     and timed there.
 The kernels' times are device times: the launches queue behind a sleeping
 kernel, so the events time the card's work and not the Python that issues
 it (`call_ms`, one call timed alone, includes that; `kernel_ms` is the
@@ -153,7 +168,8 @@ results, the last line {"ok": true, "device": {...}}.
 torch.profiler instead (see `profile_tempinterp`).
 `--turbo` builds the kernels and runs phase 8 alone (all 6 frames),
 `--exact` phase 9, `--device-enc` phase 10 with the 1080p P frame and
-the operation counts, `--multistream` phase 11.
+the operation counts, `--multistream` phase 11, `--me` phase 12 on the
+bench stream's first three frames.
 """
 import argparse
 import hashlib
@@ -246,6 +262,36 @@ DEVENC_REUSE = ("edges264x4", 264, 136, 4, 7)
 # the diagonal of the 1080p frame 1 whose torch operations --device-enc
 # counts: one of the 8-lane diagonals in the middle of the frame
 COUNT_DIAGONAL = 15
+# phase 12: thor_tpu's lockstep motion search (ops/me_batch.py) at
+# 1080p on me1080_inputs (the bench stream's frames 0-2, then
+# default_rng(ME1080_SEED)): the sha256 (me_digest) of each search's
+# (sad, mv_y, mv_x), thor_tpu's JAX functions on the CPU on the same
+# inputs, run op by op (the slow test_me1080_hashes_are_thor_tpus of
+# tests/test_torch_me_batch.py recomputes them), and K1's launches in each
+# search: one per mc_luma_tiles call, as in thor_tpu (16 exact sub-pel
+# evaluations with speed0; 49 telescope candidates and 6 slots of two
+# calls in the bi-prediction search; 49 + 6 in the sync search); K2 and
+# K3 launch in none
+ME1080_SEED = 1012
+ME1080_MVC = (6, -10)
+ME1080_SHA256 = {
+    "me_fast":
+        "90a864dc021bd6ff2a936ed67b63249224eab540e2e2bd68b95a4773a0b762a0",
+    "me_telescope":
+        "875b25ccf65ccbf9115fa3bd8a2582855efe95636d679be078a2fc8549c3e277",
+    "me_speed0":
+        "2b23a55a102ae6274adc873012904e12fb23d992f68da9d1311624284955785d",
+    "me_bi":
+        "53dcff54d3f1a725e212ccf75bcc1aadaa197ad6f523263994254c004befa8b7",
+    "me_sync":
+        "3ac2a0807dbdf6a7b57121758892c4fe82b16d664a1d40e86c3b8080237aeed7"}
+ME1080_K1 = {"me_fast": 0, "me_telescope": 0, "me_speed0": 16,
+             "me_bi": 110, "me_sync": 55}
+ME1080_NONE = dict.fromkeys(ME1080_K1, 0)
+# the bi-prediction search's K1 calls that phase 12 holds against the
+# plain version and times: the two of the first persistent slot (slot 0,
+# quarter-pel candidates: copy, six-tap and low-pass cells mixed)
+ME1080_HELD = (98, 99)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 rate
 # int32 multiply-adds run outside the tensor cores: the H100 SXM float32
 # rate outside them, 67 T/s, stands for their peak
@@ -267,7 +313,8 @@ KERNELS = {   # name: (source, the Pallas call it replaces, launch counter
                                         "multistream_decode": 7,
                                         "multistream_pipeline": 2,
                                         "lanes_encode": 1,
-                                        "multistream_encode": 1}),
+                                        "multistream_encode": 1,
+                                        **ME1080_K1}),
     "mc_chroma_uv_cells": (SRC + "mc_chroma.cu",
                            "thor_tpu/ops/mc_pallas.py:385",
                            "CHROMA_UV_LAUNCHES", {"bench_decode": 1,
@@ -280,7 +327,8 @@ KERNELS = {   # name: (source, the Pallas call it replaces, launch counter
                                                   "multistream_decode": 0,
                                                   "multistream_pipeline": 1,
                                                   "lanes_encode": 0,
-                                                  "multistream_encode": 0}),
+                                                  "multistream_encode": 0,
+                                                  **ME1080_NONE}),
     # the one-plane case of thor_mc_chroma_cells: the two-stage executor
     # (solo and stream-batched) and the turbo encoder's finalizer call it
     # once per plane and list; the tile pipeline takes it when a stream's
@@ -292,10 +340,11 @@ KERNELS = {   # name: (source, the Pallas call it replaces, launch counter
                          "exact_encode": 0, "mixed_encode": 1,
                          "device_encode": 0, "multistream_decode": 14,
                          "multistream_pipeline": 0, "lanes_encode": 1,
-                         "multistream_encode": 1}),
+                         "multistream_encode": 1, **ME1080_NONE}),
 }
 # the paths whose launch counts are exact (the others must launch some)
-EXACT_PATHS = ("tile_pipeline", "multistream_decode", "multistream_pipeline")
+EXACT_PATHS = ("tile_pipeline", "multistream_decode",
+               "multistream_pipeline", *ME1080_K1)
 
 
 def reset_launches(MC):
@@ -2075,6 +2124,175 @@ def phase_multistream(device, card, solo_times=None):
     return launches, out
 
 
+def bench_frames(n, device):
+    """The first n frames of the bench stream: its first n frame units
+    (the first holds the sequence header too) decoded with fused=False;
+    the stream is low-delay, so these are display frames 0..n-1."""
+    from thor_tpu_torch import decode_stream
+    from thor_tpu_torch.bitstream import FrameUnitReader
+    with open(BENCH_STREAM, "rb") as f:
+        data = f.read()
+    fur = FrameUnitReader(data)
+    for _ in range(n):
+        fur.next_frame()
+    _, frames = decode_stream(data[:fur.off], device=device, fused=False)
+    return frames
+
+
+def me1080_inputs(frames):
+    """Phase 12's inputs, numpy arrays: {search: (function of
+    thor_tpu_torch.ops.me_batch and of thor_tpu.ops.me_batch, positional
+    arguments, keywords)}.  The 16x16 blocks of frame 1 (8,160) search
+    frame 0, padded by PADDING_Y as the encoder pads its references
+    (frame.py:YuvFrame.pad_frame); frame 2 is the bi-prediction search's
+    second reference; the sync search takes the 8x8 sub-PUs at offsets 0
+    and 8 of every 16x16 parent (32,640).  MV predictors, lambdas
+    (float64, 1-8), candidates and counts come from
+    default_rng(ME1080_SEED)."""
+    import numpy as np
+    from thor_tpu_torch.frame import YuvFrame
+    from thor_tpu_torch.tables import PADDING_Y
+    W, H = W1080, H1080
+    i32 = np.int32
+
+    def luma(k):
+        return np.frombuffer(frames[k], np.uint8, W * H).reshape(H, W)
+
+    def padded(k):
+        fr = YuvFrame(W, H, 420, PADDING_Y, 8, 8)
+        fr.y[:] = luma(k)
+        fr.pad_frame()
+        return fr.y_full.astype(i32)
+
+    def blocks(b):
+        n = (H // b) * (W // b)
+        org = luma(1).astype(i32).reshape(H // b, b, W // b, b)
+        return org.transpose(0, 2, 1, 3).reshape(n, b, b)
+
+    rng = np.random.default_rng(ME1080_SEED)
+    org = blocks(16)
+    n = org.shape[0]
+    ys = np.repeat(np.arange(0, H, 16, dtype=i32), W // 16)
+    xs = np.tile(np.arange(0, W, 16, dtype=i32), H // 16)
+    mvp = rng.integers(-20, 21, (n, 2)).astype(i32)
+    lam = rng.uniform(1.0, 8.0, n)
+    cand = rng.integers(-12, 13, (n, 4, 2)).astype(i32)
+    cn = rng.integers(1, 5, n).astype(i32)
+    bi_cn = rng.integers(0, 5, n).astype(i32)
+    ref0, ref1 = padded(0), padded(2)
+    geo = dict(width=16, height=16, size=16, sign=0, fwidth=W, fheight=H,
+               bitdepth=8)
+    mvc = dict(mvc_y=ME1080_MVC[0], mvc_x=ME1080_MVC[1])
+    me = (org, ref0, PADDING_Y, ys, xs, mvp[:, 0], mvp[:, 1], lam,
+          cand[:, :, 0], cand[:, :, 1], cn)
+    out = {
+        "me_fast": ("motion_estimate_batch", me, dict(geo, maxcand=4)),
+        "me_telescope": ("motion_estimate_batch", me, dict(
+            geo, maxcand=4, telescope=True, widesad32=True, **mvc)),
+        "me_speed0": ("motion_estimate_batch", me, dict(
+            geo, maxcand=4, telescope=True, speed0=True, bipred=0, **mvc)),
+        "me_bi": ("motion_estimate_bi_batch",
+                  (org, ref0, ref1, PADDING_Y, ys, xs, mvp[:, 0], mvp[:, 1],
+                   lam, cand[:, :, 0], cand[:, :, 1], bi_cn),
+                  dict(geo, bipred=1, **mvc))}
+    # the sync search: sub-PU k of parent p at row 4 * p + k, offsets
+    # (8 * (k >> 1), 8 * (k & 1)); slots 4 and 5 hold mvp and 0
+    sub = blocks(8).reshape(H // 16, 2, W // 16, 2, 8, 8).transpose(
+        0, 2, 1, 3, 4, 5).reshape(4 * n, 8, 8)
+    k = np.tile(np.arange(4, dtype=i32), n)
+    smvp = rng.integers(-12, 13, (4 * n, 2)).astype(i32)
+    scand = rng.integers(-10, 11, (4 * n, 6, 2)).astype(i32)
+    scand[:, 4] = smvp
+    scand[:, 5] = 0
+    out["me_sync"] = ("motion_estimate_sync_batch", (
+        sub, ref0, PADDING_Y, np.repeat(ys, 4), np.repeat(xs, 4),
+        8 * (k >> 1), 8 * (k & 1), smvp[:, 0], smvp[:, 1],
+        rng.uniform(1.0, 8.0, 4 * n), scand[:, :, 0], scand[:, :, 1]),
+        dict(geo, width=8, height=8, bipred=0, **mvc))
+    return out
+
+
+def me_digest(sad, mv_y, mv_x):
+    """sha256 of a search's output: sad as little-endian int64, then mv_y
+    and mv_x as little-endian int32."""
+    import numpy as np
+    return hashlib.sha256(b"".join(
+        np.ascontiguousarray(np.asarray(a), dt).tobytes()
+        for a, dt in ((sad, "<i8"), (mv_y, "<i4"), (mv_x, "<i4")))
+    ).hexdigest()
+
+
+def phase_me(device, card, frames):
+    """Phase 12: thor_tpu's lockstep motion search on the card at 1080p
+    (see the module docstring); returns the launches of each search and
+    K1's result on the first bi_sad call's cells."""
+    import torch
+    from thor_tpu_torch.ops import mc as MC
+    from thor_tpu_torch.ops import me_batch as ME
+    t_phase = time.time()
+    inputs = me1080_inputs(frames)
+    launches, out, luma_calls = {}, {}, []
+    kernel = MC.mc_cells_luma
+    seen = [0]
+
+    def captured(*args):
+        if seen[0] in ME1080_HELD:
+            luma_calls.append(args)
+        seen[0] += 1
+        return kernel(*args)
+
+    for name, (fn, args, kw) in inputs.items():
+        args = [torch.as_tensor(a, device=device) if hasattr(a, "shape")
+                else a for a in args]
+
+        def run():
+            return getattr(ME, fn)(*args, **kw)
+        torch.cuda.synchronize()
+        reset_launches(MC)
+        if name == "me_bi":
+            MC.mc_cells_luma = captured
+        try:
+            res = run()
+            torch.cuda.synchronize()
+        finally:
+            MC.mc_cells_luma = kernel
+        launches[name] = read_launches(MC)
+        digest = me_digest(*(t.cpu().numpy() for t in res))
+        if digest != ME1080_SHA256[name]:
+            raise AssertionError(f"phase 12: {name}: sha256 {digest}, not "
+                                 f"the reference {ME1080_SHA256[name]}")
+        check_launches(launches[name], name)
+        # seconds of one call, synchronised on both sides, then the torch
+        # operations of one call (views left out)
+        secs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        ops = count_ops([(ME, fn)], run)[fn]
+        out[name] = {"s": min(secs), "s_calls": secs, "ops": ops[0],
+                     "blocks": int(args[0].shape[0]),
+                     "launches": launches[name]}
+        print(f"phase 12: {name} ({fn}, {out[name]['blocks']} blocks of "
+              f"{kw['width']}x{kw['height']}): sha256 equals thor_tpu's; "
+              f"{min(secs):.4f} s a call (synchronised; calls {secs}); "
+              f"{ops[0]} torch operations a call; launches "
+              f"{launches[name]}; card {card}", flush=True)
+    # K1 against its plain version on one bi_sad call's two MC calls
+    # (8,160 blocks of 16 cells each; ME1080_HELD), timed on the first
+    if len(luma_calls) != len(ME1080_HELD):
+        raise AssertionError(f"phase 12: the bi-prediction search made "
+                             f"{seen[0]} luma calls, expected "
+                             f"{ME1080_K1['me_bi']}")
+    cells = hold_and_time("mc_luma_cells", luma_calls, card,
+                          "phase 12: mc_luma_cells on the bi-prediction "
+                          "search's slot-0 bi_sad cells")
+    out["phase_s"] = time.time() - t_phase
+    print(f"phase 12: {out['phase_s']:.3f} s in all", flush=True)
+    return launches, cells, out
+
+
 class _Captured(Exception):
     pass
 
@@ -2200,6 +2418,10 @@ def main():
     ap.add_argument("--multistream", action="store_true",
                     help="build the kernels and run phase 11 (the "
                     "multi-stream decode and encode, GOP lanes) alone")
+    ap.add_argument("--me", action="store_true",
+                    help="build the kernels, decode the bench stream's "
+                    "first three frames and run phase 12 (the lockstep "
+                    "motion search) alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2237,6 +2459,10 @@ def main():
         _, multi = phase_multistream(device, card)
         print(json.dumps({"multistream": multi}))
         return 0
+    if args.me:
+        _, _, me = phase_me(device, card, bench_frames(3, device))
+        print(json.dumps({"lockstep_me": me}))
+        return 0
     rand = phase_kernels(device, card)
     phase_goldens(device)
     launches, real, frames, fused_times = phase_main_path(device, card)
@@ -2250,6 +2476,7 @@ def main():
     devenc_launches, devenc = phase_device_enc(device, card)
     multi_launches, multi = phase_multistream(device, card,
                                               unfused["per_frame_s"])
+    me_launches, me_cells, me = phase_me(device, card, frames)
 
     # each kernel's headline numbers are taken on the cells of a
     # real-stream path that launches it, frame 1 of the bench stream: the
@@ -2276,12 +2503,15 @@ def main():
                                        if k != MIXED[0]),
                    "mixed_encode": mixed_launches[name],
                    "device_encode": devenc_launches[name],
-                   **{path: n[name] for path, n in multi_launches.items()}}
+                   **{path: n[name] for path, n in multi_launches.items()},
+                   **{path: n[name] for path, n in me_launches.items()}}
         if name in turbo_cells:
             sets["turbo finalizer frame 1"] = turbo_cells[name]
         batched = multi["multistream_decode"]["cells"]
         if name in batched:
             sets["pair decode frame 1 (2 streams)"] = batched[name]
+        if name == "mc_luma_cells":
+            sets["lockstep ME bi_sad (8,160 blocks)"] = me_cells
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -2304,6 +2534,7 @@ def main():
     print(json.dumps({"exact_encode": exact}))
     print(json.dumps({"device_encode": devenc}))
     print(json.dumps({"multistream": multi}))
+    print(json.dumps({"lockstep_me": me}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -934,3 +934,110 @@ def test_kernel_library_loads_once_from_threads(cuda, monkeypatch):
     assert not any(t.is_alive() for t in threads)
     assert len(binds) == 1
     assert all(g is got[0] for g in got) and got[0] is not None
+
+
+# ------------------------------------------------------ the lockstep ME
+
+def _me_scene(search, pad, rng):
+    """(function name, numpy args, keywords) of one lockstep search on a
+    128x96 frame: random blocks and candidates, a quarter of the blocks at
+    the four frame corners with candidates past the clip bound (at pad
+    144 their windows leave the plane, and dynamic_slice's rule
+    applies)."""
+    from thor_tpu_torch.frame import YuvFrame
+    W, H, N = 128, 96, 32
+    i32 = np.int32
+
+    def plane():
+        fr = YuvFrame(W, H, 420, pad, 8, 8)
+        fr.y[:] = rng.integers(0, 256, (H, W))
+        fr.pad_frame()
+        return fr.y_full.astype(i32)
+
+    size = 16
+    ys = (rng.integers(0, (H - size) // 8, N) * 8).astype(i32)
+    xs = (rng.integers(0, (W - size) // 8, N) * 8).astype(i32)
+    ys[::4], xs[::4] = np.resize([0, 0, H - size, H - size], N // 4), \
+        np.resize([0, W - size, 0, W - size], N // 4)
+    cand = rng.integers(-12, 13, (N, 6, 2))
+    cand[::4] = rng.choice([-200, 200], (N // 4, 6, 2))
+    cand = cand.astype(i32)
+    mvp = rng.integers(-20, 21, (N, 2)).astype(i32)
+    lam = rng.uniform(1.0, 8.0, N)
+    cn = rng.integers(0, 5, N).astype(i32)
+    ref = plane()
+    geo = dict(width=size, height=size, size=size, sign=int(rng.integers(2)),
+               fwidth=W, fheight=H, bitdepth=8, mvc_y=-9, mvc_x=5)
+    org = rng.integers(0, 256, (N, size, size)).astype(i32)
+    me = (org, ref, pad, ys, xs, mvp[:, 0], mvp[:, 1], lam, cand[:, :4, 0],
+          cand[:, :4, 1], np.maximum(cn, 1))
+    if search == "fast":
+        del geo["mvc_y"], geo["mvc_x"]
+        return "motion_estimate_batch", me, geo
+    if search == "telescope":
+        return "motion_estimate_batch", me, dict(geo, telescope=True,
+                                                 widesad32=True)
+    if search == "speed0":
+        return "motion_estimate_batch", me, dict(geo, telescope=True,
+                                                 speed0=True)
+    if search == "bi":
+        return "motion_estimate_bi_batch", (
+            org, ref, plane(), pad, ys, xs, mvp[:, 0], mvp[:, 1], lam,
+            cand[:, :4, 0], cand[:, :4, 1], cn), dict(geo, bipred=1)
+    boy = (rng.integers(0, 2, N) * 8).astype(i32)
+    box = (rng.integers(0, 2, N) * 8).astype(i32)
+    return "motion_estimate_sync_batch", (
+        org[:, :8, :8].copy(), ref, pad, ys, xs, boy, box, mvp[:, 0],
+        mvp[:, 1], lam, cand[:, :, 0], cand[:, :, 1]), dict(
+            geo, width=8, height=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", [160, 144])
+@pytest.mark.parametrize("search,k1", [("fast", 0), ("telescope", 0),
+                                       ("speed0", 16), ("bi", 110),
+                                       ("sync", 55)])
+def test_lockstep_searches_on_the_card_equal_cpu(cuda, search, k1, pad):
+    """ops/me_batch.py's searches on the card equal themselves on the
+    CPU, with K1 launched once per mc_luma_tiles call (none on the fast
+    and telescope paths) and K2, K3 never."""
+    from thor_tpu_torch.ops import me_batch as ME
+    fn, args, kw = _me_scene(search, pad, np.random.default_rng(
+        len(search) + pad))
+    before = (MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES)
+    got = getattr(ME, fn)(*args, **kw, device=cuda)
+    torch.cuda.synchronize()
+    assert (MC.LUMA_LAUNCHES - before[0], MC.CHROMA_LAUNCHES - before[1],
+            MC.CHROMA_UV_LAUNCHES - before[2]) == (k1, 0, 0)
+    want = getattr(ME, fn)(*args, **kw, device="cpu")
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_block_kernels_and_candidates_on_the_card_equal_cpu(cuda):
+    """ops/enc_kernels.py's plain kernels and ops/enc_cand.py's tables on
+    the card equal themselves on the CPU."""
+    from thor_tpu_torch.ops import enc_cand as EC
+    from thor_tpu_torch.ops import enc_kernels as EK
+    rng = np.random.default_rng(90)
+    a, b = (rng.integers(-1023, 1024, (40, 16, 16)).astype(np.int32)
+            for _ in range(2))
+    for fn in (EK.sad_batch, EK.ssd_batch, EK.avg_batch):
+        _both(fn, cuda, a, b)
+    _both(EK.scale_down2x2, cuda, a[0])
+    W, H = 200, 136
+    ys, xs = (g.ravel().astype(np.int32) for g in np.meshgrid(
+        np.arange(0, H, 8), np.arange(0, W, 8), indexing="ij"))
+    grids = [rng.integers(-1, 2, (H // 4, W // 4)).astype(np.int32)
+             for _ in range(7)]
+    for size, sb in ((8, 64), (16, 128), (64, 64)):
+        for fn in (EC.upright_available, EC.downleft_available):
+            _both(fn, cuda, ys, xs, size, W, H, sb)
+        _both(EC.mv_pred_batch, cuda, ys, xs, size, W, H, sb, *grids[:2])
+        _both(lambda y, x, *g: EC.two_candidates_batch(
+            y, x, size, W, H, sb, dict(zip(EC.DD_FIELDS, g))), cuda, ys,
+            xs, *grids)
+        _both(EC.block_contexts_batch, cuda, ys, xs, size, W, H, 1,
+              *grids[:4])

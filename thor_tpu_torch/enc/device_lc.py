@@ -56,6 +56,7 @@ from ..ops.transform import (fwd_transform_batch, dequantize_batch,
 from ..ops.quant import quantize_batch
 from ..ops.coeff_cost import coeff_bits_batch, _log2i
 from ..ops.mc import _luma_variants
+from ..ops.me_batch import _dstart
 from ..ops import intra_batch as IB
 
 I32, I64, F64 = torch.int32, torch.int64, torch.float64
@@ -290,14 +291,6 @@ def _span(o: int, n: int, dim: int):
     (where lax.dynamic_slice would clamp; the host checks it)."""
     assert 0 <= o and o + n <= dim, (o, n, dim)
     return slice(o, o + n)
-
-
-def _dstart(start, size: int, dim: int):
-    """lax.dynamic_slice's start index for a window of `size` along an
-    axis of `dim`: a negative start counts from the end once, then the
-    start is clamped so that the window lies inside."""
-    start = start.to(I64)
-    return torch.where(start < 0, start + dim, start).clamp(0, dim - size)
 
 
 def _gat(arr, iy, ix):

@@ -1,21 +1,84 @@
-"""The encoder's batched SAD evaluators that the wavefront device encoder
-runs (torch port of thor_tpu/ops/enc_kernels.py): `widesad_batch`
-(:59), `fasthalf_batch` (:79) and `fastquarter_batch` (:139).
+"""The encoder's batched block kernels (torch port of
+thor_tpu/ops/enc_kernels.py): the SAD evaluators that the wavefront
+device encoder runs, `widesad_batch` (:59), `fasthalf_batch` (:79) and
+`fastquarter_batch` (:139), and the plain ones, `sad_batch` (:27),
+`ssd_batch` (:33), `avg_batch` (:40) and `scale_down2x2` (:47), which
+the lockstep motion search (ops/me_batch.py) runs.
 
-Each takes a batch of blocks and returns, per block, the smallest SAD and
-where it lies.  Sums are int64, as a JAX sum of int32 values is under
-64-bit JAX.  Ties keep the first candidate in the listed order: torch's
-argmin returns the first minimal index, as jnp.argmin does.
+The evaluators take a batch of blocks and return, per block, the
+smallest SAD and where it lies.  Sums are int64, as a JAX sum of int32
+values is under 64-bit JAX.  Ties keep the first candidate in the listed
+order: torch's argmin returns the first minimal index, as jnp.argmin
+does.  The plain kernels also take numpy arrays, which go to their
+`device=` keyword (`on_device`).
 """
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 
 def _i32(x):
     return x.to(torch.int32)
+
+
+def _same_device(a: torch.device, b: torch.device):
+    return a.type == b.type and (a.index is None or b.index is None
+                                 or a.index == b.index)
+
+
+def on_device(device, *arrays):
+    """The arrays of one call as tensors on one device.  Tensor arguments
+    stay where they are; numpy arrays go to `device`, resolved as
+    dec/decoder.py:resolve_device resolves it (CUDA unless the caller
+    asks for the CPU; raises when CUDA is meant and torch sees no card),
+    or to the tensor arguments' device where `device` is None.  Raises
+    for tensors on several devices or on another than `device`."""
+    from ..dec.decoder import resolve_device
+    devs = [a.device for a in arrays if isinstance(a, torch.Tensor)]
+    dev = resolve_device(device) if device is not None or not devs else \
+        devs[0]
+    if not all(_same_device(d, dev) for d in devs):
+        raise ValueError(f"arguments on {sorted({str(d) for d in devs})}, "
+                         f"not all on {dev}")
+    return [a if isinstance(a, torch.Tensor) else
+            torch.as_tensor(np.ascontiguousarray(a), device=dev)
+            for a in arrays]
+
+
+def sad_batch(org, cand, device=None):
+    """SAD per block: [N,h,w] x [N,h,w] -> [N] int64 (enc_kernels.c:84)."""
+    org, cand = on_device(device, org, cand)
+    return _sad(_i32(org), _i32(cand))
+
+
+def ssd_batch(org, cand, device=None):
+    """SSD per block -> [N] int64 (enc_kernels.c:119)."""
+    org, cand = on_device(device, org, cand)
+    d = org.to(torch.int64) - cand.to(torch.int64)
+    return (d * d).sum(dim=(1, 2))
+
+
+def avg_batch(p0, p1, device=None):
+    """Bi-prediction average (p0+p1)>>1, no rounding
+    (inter_prediction.c:228-248).  Returns int32."""
+    p0, p1 = on_device(device, p0, p1)
+    return (_i32(p0) + _i32(p1)) >> 1
+
+
+def scale_down2x2(plane, device=None):
+    """Temporal-interp pyramid downscale, SIMD rounding semantics
+    (temporal_interp.c:143: column-pair averages, then >>1).  Returns
+    int32."""
+    (plane,) = on_device(device, plane)
+    s = _i32(plane)
+    a = s[0::2, 0::2]
+    b = s[1::2, 0::2]
+    c = s[0::2, 1::2]
+    d = s[1::2, 1::2]
+    return (((a + b + 1) >> 1) + ((c + d + 1) >> 1)) >> 1
 
 
 def _avg(a, b):
