@@ -347,7 +347,7 @@ KERNELS = {   # name: (source, the Pallas call it replaces, launch counter
     #                where 0: the host-RDO encodes and the wavefront
     #                device encoder launch none)
     "mc_luma_cells": (SRC + "mc_luma.cu", "thor_tpu/ops/mc_pallas.py:164",
-                      "LUMA_LAUNCHES", {"bench_decode": 1,
+                      "mc.luma_launches", {"bench_decode": 1,
                                         "tile_pipeline": 3,
                                         "unfused_decode": 1,
                                         "turbo_encode": 1,
@@ -363,7 +363,7 @@ KERNELS = {   # name: (source, the Pallas call it replaces, launch counter
                                         "parity_encode": 0}),
     "mc_chroma_uv_cells": (SRC + "mc_chroma.cu",
                            "thor_tpu/ops/mc_pallas.py:385",
-                           "CHROMA_UV_LAUNCHES", {"bench_decode": 1,
+                           "mc.chroma_uv_launches", {"bench_decode": 1,
                                                   "tile_pipeline": 1,
                                                   "unfused_decode": 0,
                                                   "turbo_encode": 0,
@@ -382,7 +382,8 @@ KERNELS = {   # name: (source, the Pallas call it replaces, launch counter
     # once per plane and list; the tile pipeline takes it when a stream's
     # tile count is no multiple of 16 (CIF: 396)
     "mc_chroma_cells": (SRC + "mc_chroma.cu",
-                        "thor_tpu/ops/mc_pallas.py:274", "CHROMA_LAUNCHES",
+                        "thor_tpu/ops/mc_pallas.py:274",
+                        "mc.chroma_launches",
                         {"bench_decode": 0, "tile_pipeline": 2,
                          "unfused_decode": 1, "turbo_encode": 1,
                          "exact_encode": 0, "mixed_encode": 1,
@@ -396,13 +397,14 @@ EXACT_PATHS = ("tile_pipeline", "multistream_decode",
                "multistream_pipeline", *ME1080_K1)
 
 
-def reset_launches(MC):
-    for _, _, counter, _ in KERNELS.values():
-        setattr(MC, counter, 0)
+def reset_launches():
+    from thor_tpu_torch import trace as TR
+    TR.reset(*(counter for _, _, counter, _ in KERNELS.values()))
 
 
-def read_launches(MC):
-    return {name: getattr(MC, counter)
+def read_launches():
+    from thor_tpu_torch import trace as TR
+    return {name: TR.counter(counter)
             for name, (_, _, counter, _) in KERNELS.items()}
 
 
@@ -713,6 +715,7 @@ def phase_goldens(device):
     """Phase 2: the goldens through the port, byte for byte."""
     from thor_tpu_torch import decode_stream
     from thor_tpu_torch.dec import decoder as PD
+    from thor_tpu_torch import trace as TR
     for name in GOLDENS:
         base = os.path.join(REPO, "tests", "golden", name)
         with open(base + ".bit", "rb") as f:
@@ -720,16 +723,16 @@ def phase_goldens(device):
         with open(base + "_rec.yuv", "rb") as f:
             golden = f.read()
         t0 = time.time()
-        PD.ROUTE_FRAMES.update(dict.fromkeys(PD.ROUTE_FRAMES, 0))
+        TR.reset(*PD.ROUTE_COUNTERS)
         _, frames = decode_stream(data, device=device)
         out = b"".join(frames)
         if out != golden:
             raise AssertionError(f"golden {name}: output differs")
-        if sum(PD.ROUTE_FRAMES.values()) != len(frames):
+        if sum(PD.route_frames().values()) != len(frames):
             raise AssertionError(f"golden {name}: a frame took no route")
         print(f"phase 2: {name}: {len(frames)} frames byte-exact "
               f"({time.time() - t0:.2f} s); frames by route "
-              f"{PD.ROUTE_FRAMES}", flush=True)
+              f"{PD.route_frames()}", flush=True)
 
 
 def phase_main_path(device, card):
@@ -739,7 +742,7 @@ def phase_main_path(device, card):
     import torch
     from thor_tpu_torch.dec import decoder as PD
     from thor_tpu_torch.dec import device_frame as DF
-    from thor_tpu_torch.ops import mc as MC
+    from thor_tpu_torch import trace as TR
     with open(BENCH_STREAM, "rb") as f:
         data = f.read()
     times = []
@@ -753,10 +756,11 @@ def phase_main_path(device, card):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(MC)
-    DF.RUNS = 0
+    reset_launches()
+    TR.reset(*PD.ROUTE_COUNTERS)
     PD.Decoder.decode_frame = timed
     seen, orig_core = capture_pixel_core(DF)
+    core = DF.pixel_core
     t0 = time.time()
     try:
         _, frames = PD.decode_stream(data, device=device)
@@ -764,15 +768,16 @@ def phase_main_path(device, card):
         PD.Decoder.decode_frame = orig
         DF.pixel_core = orig_core
     wall = time.time() - t0
-    launches = read_launches(MC)
-    runs = DF.RUNS
+    launches = read_launches()
+    runs = core.calls
+    fused = PD.route_frames()["fused"]
     digest = hashlib.sha256(b"".join(frames)).hexdigest()
     if digest != BENCH_REC_SHA256:
         raise AssertionError(f"1080p output sha256 {digest} != "
                              f"{BENCH_REC_SHA256}")
-    if runs != len(frames) or len(frames) != 8:
-        raise AssertionError(f"DeviceFrameDecoder.run served {runs} of "
-                             f"{len(frames)} frames")
+    if runs != len(frames) or fused != runs or len(frames) != 8:
+        raise AssertionError(f"pixel_core ran {runs} times, the fused "
+                             f"route took {fused} of {len(frames)} frames")
     check_launches(launches, "bench_decode")
     steady = times[3:] if len(times) > 4 else times
     fps = len(steady) / sum(steady)
@@ -790,16 +795,18 @@ def capture_pixel_core(DF):
     """Wraps DF.pixel_core so that the MC inputs of its first two calls
     (frames 0 and 1) are kept, and no later ones, which would raise the
     decode's peak device memory; returns the list they go to and the
-    original function."""
+    original function.  The wrapper counts its calls in `calls`."""
     seen = []
     orig = DF.pixel_core
 
     def core(ystack, ustack, vstack, gstack, cstack, *args, **kw):
+        core.calls += 1
         if len(seen) < 2:
             seen.append((ystack, ustack, vstack, gstack, cstack, kw["pad"],
                          kw["pad_c"], kw["bd"], kw["has_inter"]))
         return orig(ystack, ustack, vstack, gstack, cstack, *args, **kw)
 
+    core.calls = 0
     DF.pixel_core = core
     return seen, orig
 
@@ -898,14 +905,14 @@ def phase_tiles(device, card):
     for _, run in runs:     # warm up: allocator, tables on the card
         run(device)
     torch.cuda.synchronize()
-    reset_launches(MC)
+    reset_launches()
     got, ms = [], []
     for _, run in runs:
         t0 = time.perf_counter()
         got.append(run(device))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    launches = read_launches(MC)
+    launches = read_launches()
     for (what, run), g, t in zip(runs, got, ms):
         want = run("cpu")
         err = max_err([x.cpu() for x in g], want)
@@ -974,7 +981,7 @@ def phase_unfused(device, card, real, fused_times):
     that frame 1's calls gave it."""
     import torch
     from thor_tpu_torch.dec import decoder as PD
-    from thor_tpu_torch.dec import device_frame as DF
+    from thor_tpu_torch import trace as TR
     from thor_tpu_torch.dec import device_pixels as DP
     from thor_tpu_torch.ops import filters as OF
     from thor_tpu_torch.ops import mc as MC
@@ -1006,9 +1013,8 @@ def phase_unfused(device, card, real, fused_times):
         return orig[3](*args)
 
     torch.cuda.synchronize()
-    reset_launches(MC)
-    DF.RUNS = 0
-    PD.ROUTE_FRAMES.update(dict.fromkeys(PD.ROUTE_FRAMES, 0))
+    reset_launches()
+    TR.reset(*PD.ROUTE_COUNTERS)
     PD.Decoder.decode_frame = timed
     DP.execute = synced(orig[1], "execute")
     OF.filters_exec = synced(orig[2], "filters_exec")
@@ -1020,16 +1026,15 @@ def phase_unfused(device, card, real, fused_times):
         (PD.Decoder.decode_frame, DP.execute, OF.filters_exec,
          DP.mc_cells_chroma) = orig
     wall = time.time() - t0
-    launches = read_launches(MC)
-    routes = dict(PD.ROUTE_FRAMES)
+    launches = read_launches()
+    routes = PD.route_frames()
     digest = hashlib.sha256(b"".join(frames)).hexdigest()
     if digest != BENCH_REC_SHA256:
         raise AssertionError(f"1080p output through the unfused routes: "
                              f"sha256 {digest} != {BENCH_REC_SHA256}")
-    if DF.RUNS or routes != {"fused": 0, "two_stage": 7, "host_records": 1,
-                             "python_walk": 0}:
-        raise AssertionError(f"fused=False: routes {routes}, fused runs "
-                             f"{DF.RUNS}")
+    if routes != {"fused": 0, "two_stage": 7, "host_records": 1,
+                  "python_walk": 0}:
+        raise AssertionError(f"fused=False: routes {routes}")
     check_launches(launches, "unfused_decode")
     r4 = [round(t, 4) for t in times]
     print(f"phase 7: 1080p LDB-LC bench stream with fused=False: all "
@@ -1049,7 +1054,7 @@ def phase_unfused(device, card, real, fused_times):
     if len(chroma_calls) != 2:
         raise AssertionError(f"frame 1 made {len(chroma_calls)} one-plane "
                              f"chroma calls, expected 2")
-    before = read_launches(MC)["mc_chroma_cells"]
+    before = read_launches()["mc_chroma_cells"]
     errs = []
     for plane, args in zip("uv", chroma_calls):
         stack, cells = args[0], dict(zip(("rsel", "y0", "x0", "op", "vf",
@@ -1062,7 +1067,7 @@ def phase_unfused(device, card, real, fused_times):
         got = MC.mc_cells_chroma(*args)
         torch.cuda.synchronize()
         errs.append(max_err(got, MC.mc_cells_chroma_plain(*args)))
-    if read_launches(MC)["mc_chroma_cells"] != before + 2:
+    if read_launches()["mc_chroma_cells"] != before + 2:
         raise AssertionError("the one-plane wrapper did not launch")
     print(f"phase 7: mc_chroma_cells against its plain version on frame "
           f"1's u and v calls ({chroma_calls[0][2].shape[0]} cells, the "
@@ -1343,7 +1348,6 @@ def phase_turbo(device, card, N=3):
     from thor_tpu_torch.enc import turbo_final as PF
     from thor_tpu_torch.enc import turbo_native as TN
     from thor_tpu_torch.enc.params import EncParams
-    from thor_tpu_torch.ops import mc as MC
 
     yuv = lc1080_clip(N)
     stage = {k: [] for k in ("decide", "plan", "finalize", "pull", "emit",
@@ -1419,7 +1423,7 @@ def phase_turbo(device, card, N=3):
                     frame=traced)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(MC)
+    reset_launches()
     for k, (m, a) in orig.items():
         setattr(m, a, wrappers[k])
     t0 = time.time()
@@ -1430,7 +1434,7 @@ def phase_turbo(device, card, N=3):
         for k, (m, a) in orig.items():
             setattr(m, a, saved[k])
     wall = time.time() - t0
-    launches = read_launches(MC)
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2**20
     digests = (hashlib.sha256(bs).hexdigest(),
                hashlib.sha256(rec).hexdigest())
@@ -1570,7 +1574,6 @@ def phase_exact(device, card):
     from thor_tpu_torch.enc import filters_rdo as FR
     from thor_tpu_torch.enc import turbo as PT
     from thor_tpu_torch.enc.params import EncParams, parse_config_file
-    from thor_tpu_torch.ops import mc as MC
 
     # a frame's parts: the whole encode_frame, turbo's decide + finalize
     # (turbo frames), the filter tail and, within it, its three filters
@@ -1603,7 +1606,7 @@ def phase_exact(device, card):
             return run
 
         err = io.StringIO()
-        reset_launches(MC)
+        reset_launches()
         for k, (m, a) in parts.items():
             setattr(m, a, timed(k))
         t0 = time.time()
@@ -1614,7 +1617,7 @@ def phase_exact(device, card):
             for k, (m, a) in parts.items():
                 setattr(m, a, saved[k])
         wall = time.time() - t0
-        launches = read_launches(MC)
+        launches = read_launches()
         sys.stderr.write(err.getvalue())
         per = []
         for fr in frames:
@@ -1721,7 +1724,6 @@ def phase_device_enc(device, card, frames=1, count=False):
     from thor_tpu_torch.enc import device_lc as D
     from thor_tpu_torch.enc import encoder as PE
     from thor_tpu_torch.enc.params import EncParams
-    from thor_tpu_torch.ops import mc as MC
 
     G = D.DiagonalGraph
     parts = {"consts": (D, "build_frame_consts"),
@@ -1880,7 +1882,7 @@ def phase_device_enc(device, card, frames=1, count=False):
     t_phase = time.time()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches(MC)
+    reset_launches()
     bs, rec, flog, routes, wall = encode(W1080, H1080, frames,
                                          lc1080_clip(frames))
     peak = torch.cuda.max_memory_allocated() / 2**20
@@ -1941,7 +1943,7 @@ def phase_device_enc(device, card, frames=1, count=False):
         print(f"phase 10: {what} ({W}x{H}, {k} frames) on the card: stream "
               f"and recon equal thor_tpu's device route ({s:.3f} s); frames "
               f"by route {r}", flush=True)
-    launches = read_launches(MC)
+    launches = read_launches()
     print(f"phase 10: launches over these encodes {launches}", flush=True)
     check_launches(launches, "device_encode")
 
@@ -1990,7 +1992,6 @@ def phase_multistream(device, card, solo_times=None):
     from thor_tpu_torch.enc.multistream import encode_streams_sharded
     from thor_tpu_torch.enc.params import EncParams
     from thor_tpu_torch.models import pipeline as PP
-    from thor_tpu_torch.ops import mc as MC
     from thor_tpu_torch.ops import tempinterp as PTI
     out, launches = {}, {}
     t_phase = time.time()
@@ -2022,7 +2023,7 @@ def phase_multistream(device, card, solo_times=None):
         return orig[3](batch, **kw)
 
     torch.cuda.synchronize()
-    reset_launches(MC)
+    reset_launches()
     PD.Decoder.decode_frame = timed
     DP.mc_cells_luma = captured("luma", orig[1])
     DP.mc_cells_chroma = captured("chroma", orig[2])
@@ -2034,7 +2035,7 @@ def phase_multistream(device, card, solo_times=None):
         (PD.Decoder.decode_frame, DP.mc_cells_luma, DP.mc_cells_chroma,
          DP.frame_exec_batch) = orig
     wall = time.time() - t0
-    launches["multistream_decode"] = read_launches(MC)
+    launches["multistream_decode"] = read_launches()
     for frames in outs:
         digest = hashlib.sha256(b"".join(frames)).hexdigest()
         if digest != BENCH_REC_SHA256:
@@ -2077,14 +2078,14 @@ def phase_multistream(device, card, solo_times=None):
     for _, step, args in steps:      # warm up
         step(*args)
     torch.cuda.synchronize()
-    reset_launches(MC)
+    reset_launches()
     got, ms = [], []
     for _, step, args in steps:
         t0 = time.perf_counter()
         got.append(step(*args))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    launches["multistream_pipeline"] = read_launches(MC)
+    launches["multistream_pipeline"] = read_launches()
     for (what, step, args), g, t in zip(steps, got, ms):
         want = step(*[a.cpu() for a in args])
         err = max_err([x.cpu() for x in g], want)
@@ -2130,7 +2131,7 @@ def phase_multistream(device, card, solo_times=None):
 
     frame_t = []
     torch.cuda.synchronize()
-    reset_launches(MC)
+    reset_launches()
     for k, (m, a) in parts.items():
         setattr(m, a, timed_part(k))
     t0 = time.time()
@@ -2144,7 +2145,7 @@ def phase_multistream(device, card, solo_times=None):
         for k, (m, a) in parts.items():
             setattr(m, a, saved[k])
     wall = time.time() - t0
-    launches["lanes_encode"] = read_launches(MC)
+    launches["lanes_encode"] = read_launches()
     digests = (hashlib.sha256(bs).hexdigest(),
                hashlib.sha256(rec).hexdigest())
     if digests != (LANES1080_STREAM_SHA256, LANES1080_REC_SHA256):
@@ -2203,9 +2204,9 @@ def phase_multistream(device, card, solo_times=None):
     # are those of the first run together
     solo = [one_by_one()]
     torch.cuda.synchronize()
-    reset_launches(MC)
+    reset_launches()
     both, res = together()
-    launches["multistream_encode"] = read_launches(MC)
+    launches["multistream_encode"] = read_launches()
     both = [both, together()[0]]
     solo.append(one_by_one())
     for name, (bs, rec) in zip(names, res):
@@ -2360,7 +2361,7 @@ def phase_me(device, card, frames):
         def run():
             return getattr(ME, fn)(*args, **kw)
         torch.cuda.synchronize()
-        reset_launches(MC)
+        reset_launches()
         if name == "me_bi":
             MC.mc_cells_luma = captured
         try:
@@ -2368,7 +2369,7 @@ def phase_me(device, card, frames):
             torch.cuda.synchronize()
         finally:
             MC.mc_cells_luma = kernel
-        launches[name] = read_launches(MC)
+        launches[name] = read_launches()
         digest = me_digest(*(t.cpu().numpy() for t in res))
         if digest != ME1080_SHA256[name]:
             raise AssertionError(f"phase 12: {name}: sha256 {digest}, not "
@@ -2420,7 +2421,7 @@ def phase_parity(device, card, full=False):
     from thor_tpu_torch.dec import decoder as PD
     from thor_tpu_torch.enc import device_lc, turbo
     from thor_tpu_torch.enc.params import EncParams
-    from thor_tpu_torch.ops import mc as MC
+    from thor_tpu_torch import trace as TR
     from thor_tpu_torch.ops import tempinterp as OT
     from thor_tpu_torch.spec import tempinterp as ST
 
@@ -2467,7 +2468,7 @@ def phase_parity(device, card, full=False):
     for k, (m, a) in counted.items():
         setattr(m, a, counter(k))
     try:
-        reset_launches(MC)
+        reset_launches()
         for name, m in meta.items():
             if m["run"] == "raises":
                 continue
@@ -2476,7 +2477,7 @@ def phase_parity(device, card, full=False):
             unfused = on_card and (full or name == PARITY_UNFUSED)
             for fused in (True, False) if unfused else (True,):
                 calls.update(dict.fromkeys(calls, 0))
-                PD.ROUTE_FRAMES.update(dict.fromkeys(PD.ROUTE_FRAMES, 0))
+                TR.reset(*PD.ROUTE_COUNTERS)
                 t0 = time.time()
                 _, frames = decode_stream(bs, device=device, fused=fused)
                 s = time.time() - t0
@@ -2485,7 +2486,7 @@ def phase_parity(device, card, full=False):
                     raise AssertionError(f"phase 13: {name} ({what}): the "
                                          f"card's decode differs from the "
                                          f"reference decode")
-                routes = dict(PD.ROUTE_FRAMES)
+                routes = PD.route_frames()
                 check_gate(name, what)
                 # 4:2:0 frames on the card's routes: all fused, or with
                 # fused=False the two-stage executor (the I frame, as in
@@ -2520,12 +2521,12 @@ def phase_parity(device, card, full=False):
               f"decode_streams_sharded: both equal to the reference decode "
               f"({s:.3f} s; {calls['interp_spec']} spec interpolations)",
               flush=True)
-        dec_launches = read_launches(MC)
+        dec_launches = read_launches()
         check_launches(dec_launches, "parity_decode")
         print(f"phase 13: launches over the decodes {dec_launches}",
               flush=True)
 
-        reset_launches(MC)
+        reset_launches()
         for name in [n for n in meta if full or n == PARITY_ENCODE]:
             m = meta[name]
             yuv = case_clip(m["clip"])
@@ -2571,7 +2572,7 @@ def phase_parity(device, card, full=False):
                   f"frames by route {routes}; interpolations device "
                   f"{calls['interp_device']} spec {calls['interp_spec']}",
                   flush=True)
-        enc_launches = read_launches(MC)
+        enc_launches = read_launches()
         check_launches(enc_launches, "parity_encode")
     finally:
         for k, (m, a) in counted.items():

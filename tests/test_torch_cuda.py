@@ -12,11 +12,18 @@ import pytest
 import torch
 
 from thor_tpu_torch import tables as T
+from thor_tpu_torch import trace as TR
 from thor_tpu_torch.kernels import build
 from thor_tpu_torch.ops import mc as MC
 
 LUMA = ("rsel", "y0", "x0", "op", "vf", "hf", "fs")
 CHROMA = ("rsel", "y0", "x0", "op", "vf", "hf")
+
+
+def launches():
+    """(luma, one-plane chroma, chroma U+V) MC kernel launches so far."""
+    return tuple(TR.counter(f"mc.{k}_launches")
+                 for k in ("luma", "chroma", "chroma_uv"))
 
 
 @pytest.fixture
@@ -50,10 +57,10 @@ def test_luma_kernel_equals_plain(cuda, bitdepth):
     ref = torch.from_numpy(rng.integers(0, 1 << bitdepth, (R, Hp, Wp))
                            .astype(np.int16)).to(cuda)
     cells = _cells(rng, n, R, Hp, Wp, 4, 4, True, cuda)
-    before = MC.LUMA_LAUNCHES
+    before = launches()[0]
     got = MC.mc_cells_luma(ref, *cells, 4, bitdepth)
     torch.cuda.synchronize()
-    assert MC.LUMA_LAUNCHES == before + 1
+    assert launches()[0] == before + 1
     assert torch.equal(got, MC.mc_cells_luma_plain(ref, *cells, 4, bitdepth))
 
 
@@ -65,14 +72,12 @@ def test_chroma_kernel_equals_plain(cuda, bitdepth):
     u, v = (torch.from_numpy(rng.integers(0, 1 << bitdepth, (R, Hp, Wp))
                              .astype(np.int16)).to(cuda) for _ in range(2))
     cells = _cells(rng, n, R, Hp, Wp, 2, 8, False, cuda)
-    before = MC.CHROMA_UV_LAUNCHES, MC.CHROMA_LAUNCHES
+    before = launches()
     pu, pv = MC.mc_cells_chroma_uv(u, v, *cells, 2, bitdepth)
-    assert (MC.CHROMA_UV_LAUNCHES, MC.CHROMA_LAUNCHES) == (before[0] + 1,
-                                                           before[1])
+    assert launches()[1:] == (before[1], before[2] + 1)
     one = MC.mc_cells_chroma(v, *cells, 2, bitdepth)
     torch.cuda.synchronize()
-    assert (MC.CHROMA_UV_LAUNCHES, MC.CHROMA_LAUNCHES) == (before[0] + 1,
-                                                           before[1] + 1)
+    assert launches()[1:] == (before[1] + 1, before[2] + 1)
     assert torch.equal(pu, MC.mc_cells_chroma_plain(u, *cells, 2, bitdepth))
     assert torch.equal(pv, MC.mc_cells_chroma_plain(v, *cells, 2, bitdepth))
     assert torch.equal(one, pv)
@@ -238,11 +243,11 @@ def test_luma_tiles_on_the_card_equal_plain(cuda, bipred, bitdepth):
     equal to the plain version on whole tiles (the CPU route)."""
     rng = np.random.default_rng([1, bipred, bitdepth])
     args = _tile_inputs(rng, 396, 416, 480, 16, 5, 4, bitdepth, 1)
-    before = MC.LUMA_LAUNCHES
+    before = launches()[0]
     got = MC.mc_luma_tiles(*_on(cuda, args), tile=16, bipred=bipred,
                            bitdepth=bitdepth)
     torch.cuda.synchronize()
-    assert MC.LUMA_LAUNCHES == before + 1
+    assert launches()[0] == before + 1
     want = MC.mc_luma_tiles(*_on("cpu", args), tile=16, bipred=bipred,
                             bitdepth=bitdepth)
     assert got.shape == (396, 16, 16) and torch.equal(got.cpu(), want)
@@ -257,16 +262,14 @@ def test_chroma_tiles_on_the_card_equal_plain(cuda, bitdepth):
     rng = np.random.default_rng([2, bitdepth])
     args = _tile_inputs(rng, 396, 208, 240, 8, 3, 8, bitdepth, 2)
     refu, refv, *meta = _on(cuda, args)
-    before = MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+    before = launches()[1:]
     one_u = MC.mc_chroma_tiles(refu, *meta, tile=8, bitdepth=bitdepth)
     one_v = MC.mc_chroma_tiles(refv, *meta, tile=8, bitdepth=bitdepth)
-    assert (MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES) == (before[0] + 2,
-                                                           before[1])
+    assert launches()[1:] == (before[0] + 2, before[1])
     pu, pv = MC.mc_chroma_uv_tiles(refu, refv, *meta, tile=8,
                                    bitdepth=bitdepth)
     torch.cuda.synchronize()
-    assert (MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES) == (before[0] + 2,
-                                                           before[1] + 1)
+    assert launches()[1:] == (before[0] + 2, before[1] + 1)
     cu, cv, *cmeta = _on("cpu", args)
     for got, ref in ((one_u, cu), (one_v, cv), (pu, cu), (pv, cv)):
         want = MC.mc_chroma_tiles(ref, *cmeta, tile=8, bitdepth=bitdepth)
@@ -281,10 +284,10 @@ def test_tile_pipeline_on_the_card_equals_cpu(cuda, height, width, kernels):
     from thor_tpu_torch.models import pipeline as PP
     args, _, _ = PP.make_example_full(height, width, 32, seed=4)
     kw = dict(height=height, width=width, qp=32, clpf_strengths=(2, 1, 4))
-    before = MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+    before = launches()
     got = PP.decode_p_frame_420(*args, device=cuda, **kw)
     torch.cuda.synchronize()
-    after = MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+    after = launches()
     assert tuple(a - b for a, b in zip(after, before)) == kernels
     want = PP.decode_p_frame_420(*args, device="cpu", **kw)
     for g, w in zip(got, want):
@@ -428,10 +431,10 @@ def test_frame_exec_on_the_card_equals_cpu(cuda, monkeypatch):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     for arrs, static in seen:
-        before = MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+        before = launches()
         got = DP.frame_exec(**on(cuda, arrs), **static)
         torch.cuda.synchronize()
-        after = MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+        after = launches()
         lists = 2 if static["has_avg"] else 1
         assert tuple(a - b for a, b in zip(after, before)) == (
             lists, 2 * lists, 0)
@@ -449,10 +452,10 @@ def test_unfused_routes_decode_on_the_card(cuda, name, fused):
     from thor_tpu_torch import decode_stream
     from thor_tpu_torch.dec import decoder as PD
     data, golden = _golden(name)
-    PD.ROUTE_FRAMES.update(dict.fromkeys(PD.ROUTE_FRAMES, 0))
+    TR.reset(*PD.ROUTE_COUNTERS)
     _, frames = decode_stream(data, device=cuda, fused=fused)
     assert b"".join(frames) == golden
-    assert PD.ROUTE_FRAMES["fused"] == 0
+    assert PD.route_frames()["fused"] == 0
 
 
 # ------------------------------------------------------ the turbo encoder
@@ -569,7 +572,7 @@ def test_turbo_encodes_on_the_card_equal_thor_tpus_streams(cuda):
     with open(os.path.join(fix, "fixtures.json")) as f:
         meta = json.load(f)
     W, H, N, seed, kw = CS.TURBO_FIXTURES["lc"]
-    before = MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+    before = launches()
     bs, rec = encode_sequence(
         EncParams(width=W, height=H, num_frames=N, turbo=1,
                   **dict(CS.LC_KW, **kw)),
@@ -577,7 +580,7 @@ def test_turbo_encodes_on_the_card_equal_thor_tpus_streams(cuda):
     with open(os.path.join(fix, "lc.bit"), "rb") as f:
         assert bs == f.read()
     assert hashlib.sha256(rec).hexdigest() == meta["lc"]["rec_sha256"]
-    after = MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+    after = launches()
     # one P frame: the luma kernel once, the one-plane kernel for U and V
     assert (after[0] - before[0], after[1] - before[1],
             after[2] - before[2]) == (1, 2, 0)
@@ -600,14 +603,13 @@ def test_exact_encoder_on_the_card_writes_the_golden(cuda):
     p = parse_config_file(os.path.join(gdir, "config_LDB_low_complexity.txt"),
                           width=64, height=64, num_frames=6, qp=32,
                           frame_rate=30.0)
-    before = MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+    before = launches()
     bs, rec = encode_sequence(p, CS.make_tiny64(6), device=cuda)
     with open(os.path.join(gdir, "tiny64_ldblc.bit"), "rb") as f:
         assert bs == f.read()
     with open(os.path.join(gdir, "tiny64_ldblc_rec.yuv"), "rb") as f:
         assert rec == f.read()
-    assert (MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES,
-            MC.CHROMA_UV_LAUNCHES) == before
+    assert launches() == before
 
 
 @pytest.mark.cuda
@@ -636,7 +638,7 @@ def test_device_encoder_on_the_card_equals_thor_tpus(cuda):
     dev = D.encode_frame_device
     D.encode_frame_device = lambda enc: frames.append(enc.fi.frame_num) or \
         dev(enc)
-    before = MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+    before = launches()
     try:
         bs, rec = encode_sequence(
             EncParams(width=W, height=H, num_frames=N, device_enc=1,
@@ -648,8 +650,7 @@ def test_device_encoder_on_the_card_equals_thor_tpus(cuda):
         assert bs == f.read()
     assert hashlib.sha256(rec).hexdigest() == meta["rec_sha256"]
     assert frames == list(range(N))
-    assert (MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES,
-            MC.CHROMA_UV_LAUNCHES) == before
+    assert launches() == before
 
 
 # ------------------------------------------- device encoder's CUDA graphs
@@ -838,11 +839,11 @@ def test_batched_frame_exec_on_the_card_equals_cpu(cuda, monkeypatch):
     for (a0, s0), (a1, s1) in zip(seen, seen[1:]):
         has_avg = s0["has_avg"] or s1["has_avg"]
         sig = {k: v for k, v in s0.items() if k != "has_avg"}
-        before = MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+        before = launches()
         got = DP.frame_exec_batch([DP.upload(a, cuda) for a in (a0, a1)],
                                   has_avg=has_avg, **sig)
         torch.cuda.synchronize()
-        after = MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+        after = launches()
         lists = 2 if has_avg else 1
         assert tuple(a - b for a, b in zip(after, before)) == (
             lists, 2 * lists, 0)
@@ -865,10 +866,10 @@ def test_pair_decode_on_the_card(cuda, monkeypatch):
         batches.append(len(batch))
         return orig(batch, **kw)
     monkeypatch.setattr(DP, "frame_exec_batch", counted)
-    before = MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+    before = launches()
     outs = MS.decode_streams_sharded([_golden(n)[0] for n in names],
                                      device=cuda)
-    after = MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES
+    after = launches()
     for n, frames in zip(names, outs):
         assert b"".join(frames) == _golden(n)[1]
     assert batches == [2] * 5
@@ -1004,11 +1005,10 @@ def test_lockstep_searches_on_the_card_equal_cpu(cuda, search, k1, pad):
     from thor_tpu_torch.ops import me_batch as ME
     fn, args, kw = _me_scene(search, pad, np.random.default_rng(
         len(search) + pad))
-    before = (MC.LUMA_LAUNCHES, MC.CHROMA_LAUNCHES, MC.CHROMA_UV_LAUNCHES)
+    before = launches()
     got = getattr(ME, fn)(*args, **kw, device=cuda)
     torch.cuda.synchronize()
-    assert (MC.LUMA_LAUNCHES - before[0], MC.CHROMA_LAUNCHES - before[1],
-            MC.CHROMA_UV_LAUNCHES - before[2]) == (k1, 0, 0)
+    assert tuple(a - b for a, b in zip(launches(), before)) == (k1, 0, 0)
     want = getattr(ME, fn)(*args, **kw, device="cpu")
     for g, w in zip(got, want):
         assert g.device.type == "cuda" and g.dtype == w.dtype

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from thor_tpu_torch import decode_stream
+from thor_tpu_torch import trace as TR
 from thor_tpu_torch.dec import decoder as PD
 from thor_tpu_torch.dec import device_frame as PDF
 
@@ -30,13 +31,19 @@ def _check(name, fused=True, routes=None):
     """Decodes a golden byte for byte; `routes` names the routes its
     frames must take (all fused unless said otherwise)."""
     golden = _read(name + "_rec.yuv")
-    PDF.RUNS = 0
-    PD.ROUTE_FRAMES.update(dict.fromkeys(PD.ROUTE_FRAMES, 0))
-    _, frames = decode_stream(_read(name + ".bit"), device="cpu",
-                              fused=fused)
-    took = {k: v for k, v in PD.ROUTE_FRAMES.items() if v}
+    TR.reset(*PD.ROUTE_COUNTERS)
+    was = TR.enabled()
+    TR.drain()
+    TR.enable()
+    try:
+        _, frames = decode_stream(_read(name + ".bit"), device="cpu",
+                                  fused=fused)
+    finally:
+        TR.enable(was)
+    runs = sum(r.name == "dec.device_frame" for r in TR.drain())
+    took = {k: v for k, v in PD.route_frames().items() if v}
     assert sum(took.values()) == len(frames)
-    assert PDF.RUNS == took.get("fused", 0)
+    assert runs == took.get("fused", 0)
     assert set(took) == set(routes or ["fused"]), took
     fs = len(golden) // len(frames)
     assert len(golden) == fs * len(frames)

@@ -18,6 +18,7 @@ from test_torch_cuda import FILTER_CASES, filters_exec_inputs
 from thor_tpu.dec import device_pixels as JDP
 from thor_tpu.ops import filters as JOF
 from thor_tpu_torch import decode_stream
+from thor_tpu_torch import trace as TR
 from thor_tpu_torch.dec import decoder as PD
 from thor_tpu_torch.dec import device_frame as PDF
 from thor_tpu_torch.dec import device_pixels as PDP
@@ -156,9 +157,9 @@ def test_python_walk_equals_native_parse(name, fused, monkeypatch):
     data = _read(name + ".bit")
     want_h, want = decode_stream(data, device="cpu", fused=fused)
     monkeypatch.setattr(PNP, "parse_frame", lambda *a, **k: None)
-    PD.ROUTE_FRAMES.update(dict.fromkeys(PD.ROUTE_FRAMES, 0))
+    TR.reset(*PD.ROUTE_COUNTERS)
     got_h, got = decode_stream(data, device="cpu", fused=fused)
-    assert PD.ROUTE_FRAMES["python_walk"] == len(got) == len(want)
+    assert PD.route_frames()["python_walk"] == len(got) == len(want)
     assert got == want and b"".join(got) == _read(name + "_rec.yuv")
     assert vars(got_h.bit_count) == vars(want_h.bit_count)
 
@@ -201,8 +202,8 @@ def test_fused_and_unfused_frames_alternate(monkeypatch):
     monkeypatch.setattr(PDF.DeviceFrameDecoder, "RING_CAP", 1)
     monkeypatch.setattr(PDF.DeviceFrameDecoder, "eligible", every_other)
     for name in ("tiny64_ldblc", "small256_LDB_medium_complexity"):
-        PD.ROUTE_FRAMES.update(dict.fromkeys(PD.ROUTE_FRAMES, 0))
+        TR.reset(*PD.ROUTE_COUNTERS)
         _, frames = decode_stream(_read(name + ".bit"), device="cpu")
         assert b"".join(frames) == _read(name + "_rec.yuv")
-        assert PD.ROUTE_FRAMES["fused"] >= 3
-        assert PD.ROUTE_FRAMES["two_stage"] >= 2
+        assert PD.route_frames()["fused"] >= 3
+        assert PD.route_frames()["two_stage"] >= 2

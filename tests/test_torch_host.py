@@ -19,6 +19,7 @@ import thor_tpu.tables as RT
 from thor_tpu.dec import native_parse as RNP
 from thor_tpu_torch import _native as PN
 from thor_tpu_torch import decode_stream, tables as PT
+from thor_tpu_torch import trace as TR
 from thor_tpu_torch.dec import decoder as PD
 from thor_tpu_torch.dec import native_parse as PNP
 
@@ -220,10 +221,10 @@ def test_frame_the_native_parser_cannot_hold_is_refused(monkeypatch):
     thor_tpu's does: no frame is refused any more, and the output is the
     same."""
     monkeypatch.setattr(PNP, "parse_frame", lambda *a, **k: None)
-    PD.ROUTE_FRAMES.update(dict.fromkeys(PD.ROUTE_FRAMES, 0))
+    TR.reset(*PD.ROUTE_COUNTERS)
     _, frames = decode_stream(_read("tiny64_ldblc.bit"), device="cpu")
     assert b"".join(frames) == _read("tiny64_ldblc_rec.yuv")
-    assert PD.ROUTE_FRAMES["python_walk"] == len(frames) == 6
+    assert PD.route_frames()["python_walk"] == len(frames) == 6
 
 
 def test_decode_stream_defaults_to_cuda(monkeypatch):

@@ -45,7 +45,7 @@ from thor_tpu_torch.enc import me as HM
 from thor_tpu_torch.frame import YuvFrame
 from thor_tpu_torch.ops import enc_cand as PC
 from thor_tpu_torch.ops import enc_kernels as PK
-from thor_tpu_torch.ops import mc as PMC
+from thor_tpu_torch import trace as TR
 from thor_tpu_torch.ops import me_batch as PM
 
 torch.set_num_threads(1)
@@ -421,9 +421,10 @@ def stored():
 def test_stored_searches(name, stored):
     kind, make = STORED[name]
     args, kw, h = make()
-    before = PMC.LUMA_LAUNCHES
+    before = TR.counter("mc.luma_launches")
     got = port(kind, args, kw)
-    assert PMC.LUMA_LAUNCHES == before       # the CPU runs the plain MC
+    # the CPU runs the plain MC
+    assert TR.counter("mc.luma_launches") == before
     eq(got, tuple(stored[f"{name}/{k}"] for k in ("sad", "mv_y", "mv_x")))
     if not name.endswith("pad144"):
         eq(got, host(kind, args, kw, h))

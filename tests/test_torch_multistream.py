@@ -359,14 +359,14 @@ def test_native_library_loads_once_from_threads(monkeypatch):
 
 
 def test_launch_counts_from_threads_are_exact(monkeypatch):
-    """ops/mc.py's launch counters lose no count when several encoder
-    threads launch at once."""
-    from thor_tpu_torch.ops import mc as MC
-    monkeypatch.setattr(MC, "LUMA_LAUNCHES", 0)
+    """The MC launch counters (trace's counters) lose no count when
+    several encoder threads launch at once."""
+    from thor_tpu_torch import trace as TR
+    TR.reset("mc.luma_launches")
 
     def run():
         for _ in range(5000):
-            MC.count_launch("LUMA_LAUNCHES")
+            TR.count("mc.luma_launches")
     threads = [threading.Thread(target=run) for _ in range(8)]
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)   # switch threads as often as possible
@@ -378,4 +378,4 @@ def test_launch_counts_from_threads_are_exact(monkeypatch):
     finally:
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
-    assert MC.LUMA_LAUNCHES == 8 * 5000
+    assert TR.counter("mc.luma_launches") == 8 * 5000

@@ -54,6 +54,8 @@ Layout:
   tiles, its multi-stream steps, its forward step on one card and the
   multi-stream dry run
 - csrc/, kernels/: CUDA C++ sources for sm_90a and their build/binding
+- trace.py: the port's spans (off unless enabled; on the clock of the
+  device trace) and its counters (MC launches, frames by decode route)
 """
 from .dec.decoder import decode_stream  # noqa: F401
 from .dec.multistream import decode_streams_sharded  # noqa: F401

@@ -15,7 +15,8 @@ JAX backend probe, no environment switches), in `decode_frame` and
 thor_tpu's).
 
 A frame takes one of four routes, chosen by what the stream needs, as in
-thor_tpu (`ROUTE_FRAMES` counts them):
+thor_tpu (trace's counters `dec.route.<route>` count them;
+`route_frames()` reads them):
   fused         the native parse, then `DeviceFrameDecoder` (pixels, loop
                 filters and their stream reads on the device): 4:2:0
                 without cfl_inter and without tb-split intra;
@@ -50,6 +51,7 @@ import numpy as np
 import torch
 
 from .. import _native
+from .. import trace as TR
 from ..bitstream import BitReader, FrameUnitReader
 from ..frame import YuvFrame, new_ref_frame
 from ..tables import (CHROMA_QP, MAX_REF_FRAMES, MAX_REORDER_BUFFER,
@@ -72,10 +74,13 @@ MODE_SKIP, MODE_INTRA, MODE_INTER, MODE_BIPRED, MODE_MERGE = 0, 1, 2, 3, 4
 (STAT_SKIP, STAT_SPLIT, STAT_REF_IDX0, STAT_MERGE, STAT_BIPRED,
  STAT_INTRA, STAT_REF_IDX1) = range(7)
 
-# frames decoded by each route since the counts were last set to 0 (plain
-# integers; chip_smoke.py and the tests read and reset them)
-ROUTE_FRAMES = {"fused": 0, "two_stage": 0, "host_records": 0,
-                "python_walk": 0}
+ROUTES = ("fused", "two_stage", "host_records", "python_walk")
+ROUTE_COUNTERS = tuple("dec.route." + r for r in ROUTES)
+
+
+def route_frames() -> dict:
+    """Frames decoded by each route since `trace.reset(*ROUTE_COUNTERS)`."""
+    return {r: TR.counter(c) for r, c in zip(ROUTES, ROUTE_COUNTERS)}
 
 
 class BitCount:
@@ -1187,6 +1192,7 @@ class Decoder:
         elif decode_this_size or decode_rect:
             self.decode_block(s, size, ypos, xpos, mode, ref_idx, ctx[1])
 
+    @TR.spanned("dec.frame")
     def decode_frame(self, s: BitReader, decode_order_frame_num: int):
         """dec/decode_frame.c:52-212: headers, temporal interpolation,
         then one of the four routes of the module docstring."""
@@ -1261,8 +1267,9 @@ class Decoder:
         # Native (C) block-layer parse: one call for the whole SB walk,
         # filling the device plan grids / leaf records directly.
         plan = DP.FramePlan(self.width, self.height) if stream_gate else None
-        native_res = NP.parse_frame(self, s, plan,
-                                    slots if stream_gate else None)
+        with TR.span("dec.native_parse"):
+            native_res = NP.parse_frame(self, s, plan,
+                                        slots if stream_gate else None)
         route = "python_walk"
         if native_res is not None:
             blks, tbs, coef = native_res
@@ -1301,7 +1308,7 @@ class Decoder:
                 self._plan = None
                 self._plan_slots = None
                 self._plan_refs = None
-        ROUTE_FRAMES[route] += 1
+        TR.count("dec.route." + route)
 
         # qp threading + temporal MV store happen before the filter-stage
         # stream reads
@@ -1462,6 +1469,7 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+@TR.spanned("dec.stream", root=True)
 def decode_stream(data: bytes, progress=None, device=None, fused=True,
                   decoder_hook=None):
     """Decode a full Thor stream; returns (header, list of frames in

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import tables
+from .. import trace as TR
 from ..spec import filters as SF
 from ..spec import inter
 from ..ops import filters as OF
@@ -53,11 +54,6 @@ def _bucket(n):
         if n <= b:
             return b
     raise ValueError(n)
-
-
-# frames served by DeviceFrameDecoder.run since the count was last set to
-# 0 (a plain integer; chip_smoke.py and the tests read and reset it)
-RUNS = 0
 
 
 # ---------------------------------------------------------------------------
@@ -164,36 +160,40 @@ def _intra_waves(y_pl, u_pl, v_pl, segs, segcls, res_y, res_u, res_v,
     dev = y_pl.device
     segs = np.asarray(segs)
     segcls = np.asarray(segcls)
-    for nd_h, cls in zip(segs, segcls):
-        if cls == 0:
-            continue
-        nd_h = nd_h[nd_h[:, 0] > 0]
-        if not len(nd_h):
-            continue
-        n = sizes[int(cls) - 1]
-        nc = n >> 1
-        nd = torch.from_numpy(np.ascontiguousarray(nd_h)).to(dev).long()
-        yy, xx = nd[:, 1], nd[:, 2]
-        mode = nd[:, 4]
-        ur, dl = nd[:, 5] > 0, nd[:, 6] > 0
-        l, t, tl = IB.make_refs_batch(y_pl, yy, xx, n, ur, dl, bd)
-        pred = IB.select_mode(
-            IB.predict_all_modes(l, t, tl, yy, xx, n, bd, 10), mode)
-        rec = (_slices(res_y, yy, xx, n) + _i16(pred)).clamp(0, maxv)
-        yc, xc = yy >> 1, xx >> 1
-        lu, tu, tlu = IB.make_refs_batch(u_pl, yc, xc, nc, ur, dl, bd)
-        pu = IB.select_mode(
-            IB.predict_all_modes(lu, tu, tlu, yc, xc, nc, bd, 10), mode)
-        lv, tv, tlv = IB.make_refs_batch(v_pl, yc, xc, nc, ur, dl, bd)
-        pv = IB.select_mode(
-            IB.predict_all_modes(lv, tv, tlv, yc, xc, nc, bd, 10), mode)
-        if cfl:
-            pu, pv = _cfl_j(pred, pu, pv, rec, n, bd)
-        recu = (_slices(res_u, yc, xc, nc) + _i16(pu)).clamp(0, maxv)
-        recv = (_slices(res_v, yc, xc, nc) + _i16(pv)).clamp(0, maxv)
-        _write(y_pl, rec.to(y_pl.dtype), yy, xx, WMAX)
-        _write(u_pl, recu.to(u_pl.dtype), yc, xc, WC)
-        _write(v_pl, recv.to(v_pl.dtype), yc, xc, WC)
+    nseg = 0
+    with TR.span("dec.intra_waves") as sp:
+        for nd_h, cls in zip(segs, segcls):
+            if cls == 0:
+                continue
+            nd_h = nd_h[nd_h[:, 0] > 0]
+            if not len(nd_h):
+                continue
+            nseg += 1
+            n = sizes[int(cls) - 1]
+            nc = n >> 1
+            nd = torch.from_numpy(np.ascontiguousarray(nd_h)).to(dev).long()
+            yy, xx = nd[:, 1], nd[:, 2]
+            mode = nd[:, 4]
+            ur, dl = nd[:, 5] > 0, nd[:, 6] > 0
+            l, t, tl = IB.make_refs_batch(y_pl, yy, xx, n, ur, dl, bd)
+            pred = IB.select_mode(
+                IB.predict_all_modes(l, t, tl, yy, xx, n, bd, 10), mode)
+            rec = (_slices(res_y, yy, xx, n) + _i16(pred)).clamp(0, maxv)
+            yc, xc = yy >> 1, xx >> 1
+            lu, tu, tlu = IB.make_refs_batch(u_pl, yc, xc, nc, ur, dl, bd)
+            pu = IB.select_mode(
+                IB.predict_all_modes(lu, tu, tlu, yc, xc, nc, bd, 10), mode)
+            lv, tv, tlv = IB.make_refs_batch(v_pl, yc, xc, nc, ur, dl, bd)
+            pv = IB.select_mode(
+                IB.predict_all_modes(lv, tv, tlv, yc, xc, nc, bd, 10), mode)
+            if cfl:
+                pu, pv = _cfl_j(pred, pu, pv, rec, n, bd)
+            recu = (_slices(res_u, yc, xc, nc) + _i16(pu)).clamp(0, maxv)
+            recv = (_slices(res_v, yc, xc, nc) + _i16(pv)).clamp(0, maxv)
+            _write(y_pl, rec.to(y_pl.dtype), yy, xx, WMAX)
+            _write(u_pl, recu.to(u_pl.dtype), yc, xc, WC)
+            _write(v_pl, recv.to(v_pl.dtype), yc, xc, WC)
+        sp.add(segments=nseg)
     return y_pl, u_pl, v_pl
 
 
@@ -501,10 +501,11 @@ class DeviceFrameDecoder:
             return False
         return True
 
+    @TR.spanned("dec.device_frame")
     def run(self, dec, s, blks, plan, refs):
         """Execute one parsed frame; fills dec.rec; consumes the filter
-        stream reads (CDEF presets, CLPF bits) in reference order."""
-        global RUNS
+        stream reads (CDEF presets, CLPF bits) in reference order.  The
+        host's work before `pixel_core` is the span `dec.frame_prep`."""
         h = dec.h
         fi = dec.fi
         H, W = dec.height, dec.width
@@ -513,93 +514,94 @@ class DeviceFrameDecoder:
         qp = fi.qpb
         qpc = int(CHROMA_QP[qp])
 
-        # ---- intra wave segments (dependency-batched) ----
-        sb_size = 1 << h.log2_sb_size
-        recs = blks[blks[:, NP.B_MODE] == MODE_INTRA]
-        sizes = tuple(s for s in INTRA_SIZES if s <= min(H, W))
-        seg_list = build_wave_segments(recs, H, W, sizes)
-        scap = _bucket(max(len(seg_list), 1))
-        segs = np.zeros((scap, LANES, 7), np.int32)
-        segcls = np.zeros(scap, np.int32)
-        for si, (cls, idx) in enumerate(seg_list):
-            segcls[si] = cls
-            for li, ri in enumerate(idx):
-                r = recs[ri]
-                y, x, size = int(r[NP.B_YPOS]), int(r[NP.B_XPOS]), int(
-                    r[NP.B_SIZE])
-                ur = inter.get_upright_available(y, x, size, size, W, H,
-                                                 sb_size)
-                dl = inter.get_downleft_available(y, x, size, size, W, H,
-                                                  sb_size)
-                segs[si, li] = (1, y, x, log2i(size),
-                                int(r[NP.B_INTRA_MODE]), ur, dl)
+        with TR.span("dec.frame_prep"):
+            # ---- intra wave segments (dependency-batched) ----
+            sb_size = 1 << h.log2_sb_size
+            recs = blks[blks[:, NP.B_MODE] == MODE_INTRA]
+            sizes = tuple(s for s in INTRA_SIZES if s <= min(H, W))
+            seg_list = build_wave_segments(recs, H, W, sizes)
+            scap = _bucket(max(len(seg_list), 1))
+            segs = np.zeros((scap, LANES, 7), np.int32)
+            segcls = np.zeros(scap, np.int32)
+            for si, (cls, idx) in enumerate(seg_list):
+                segcls[si] = cls
+                for li, ri in enumerate(idx):
+                    r = recs[ri]
+                    y, x, size = int(r[NP.B_YPOS]), int(r[NP.B_XPOS]), int(
+                        r[NP.B_SIZE])
+                    ur = inter.get_upright_available(y, x, size, size, W, H,
+                                                     sb_size)
+                    dl = inter.get_downleft_available(y, x, size, size, W, H,
+                                                      sb_size)
+                    segs[si, li] = (1, y, x, log2i(size),
+                                    int(r[NP.B_INTRA_MODE]), ur, dl)
 
-        # ---- filter-stage host reads + masks (reference order) ----
-        if h.deblocking:
-            mv_, mh_ = OF.deblock_masks_y(dec.dd, W, H)
-            cmv, cmh = OF.deblock_masks_uv(dec.dd, W, H)
-        else:
-            mv_ = mh_ = np.zeros((H, W), bool)
-            cmv = cmh = np.zeros((Hc, Wc), bool)
-        presets_y, presets_uv = dec._read_cdef_presets(s)
-        cs = bd - 8
-        lv0, sec0, m0 = OF.cdef_block_maps(dec.dd, presets_y, W, H, 0, 1)
-        lv1, sec1, m1 = OF.cdef_block_maps(dec.dd, presets_uv, W, H, 1, 1)
-        _, _, m2 = OF.cdef_block_maps(dec.dd, presets_uv, W, H, 2, 1)
-        s_y = s_u = s_v = 0
-        clpf_my = np.zeros((H, W), bool)
-        clpf_mu = clpf_mv2 = np.zeros((Hc, Wc), bool)
-        if h.clpf:
-            s_y = s.get_flc(2)
-            s_u = s.get_flc(2)
-            s_v = s.get_flc(2)
-            if s_y:
-                fb_size_log2 = s.get_flc(2) + 4
-                enable_fb = fb_size_log2 != 4
-                if fb_size_log2 == 4:
-                    fb_size_log2 = 7
-                if enable_fb:
-                    nbits = SF.count_clpf_decisions(dec.dd, W, H, 0,
-                                                    fb_size_log2, 1)
-                    bits = [s.get_flc(1) for _ in range(nbits)]
-                else:
-                    bits = None
-                clpf_my, _ = OF.clpf_pixel_mask(dec.dd, W, H, 0,
-                                                fb_size_log2, 1,
-                                                decision_bits=bits)
-            if s_u:
-                clpf_mu, _ = OF.clpf_pixel_mask(dec.dd, W, H, 1, 4, 1)
-            if s_v:
-                clpf_mv2, _ = OF.clpf_pixel_mask(dec.dd, W, H, 2, 4, 1)
+            # ---- filter-stage host reads + masks (reference order) ----
+            if h.deblocking:
+                mv_, mh_ = OF.deblock_masks_y(dec.dd, W, H)
+                cmv, cmh = OF.deblock_masks_uv(dec.dd, W, H)
+            else:
+                mv_ = mh_ = np.zeros((H, W), bool)
+                cmv = cmh = np.zeros((Hc, Wc), bool)
+            presets_y, presets_uv = dec._read_cdef_presets(s)
+            cs = bd - 8
+            lv0, sec0, m0 = OF.cdef_block_maps(dec.dd, presets_y, W, H, 0, 1)
+            lv1, sec1, m1 = OF.cdef_block_maps(dec.dd, presets_uv, W, H, 1, 1)
+            _, _, m2 = OF.cdef_block_maps(dec.dd, presets_uv, W, H, 2, 1)
+            s_y = s_u = s_v = 0
+            clpf_my = np.zeros((H, W), bool)
+            clpf_mu = clpf_mv2 = np.zeros((Hc, Wc), bool)
+            if h.clpf:
+                s_y = s.get_flc(2)
+                s_u = s.get_flc(2)
+                s_v = s.get_flc(2)
+                if s_y:
+                    fb_size_log2 = s.get_flc(2) + 4
+                    enable_fb = fb_size_log2 != 4
+                    if fb_size_log2 == 4:
+                        fb_size_log2 = 7
+                    if enable_fb:
+                        nbits = SF.count_clpf_decisions(dec.dd, W, H, 0,
+                                                        fb_size_log2, 1)
+                        bits = [s.get_flc(1) for _ in range(nbits)]
+                    else:
+                        bits = None
+                    clpf_my, _ = OF.clpf_pixel_mask(dec.dd, W, H, 0,
+                                                    fb_size_log2, 1,
+                                                    decision_bits=bits)
+                if s_u:
+                    clpf_mu, _ = OF.clpf_pixel_mask(dec.dd, W, H, 1, 4, 1)
+                if s_v:
+                    clpf_mv2, _ = OF.clpf_pixel_mask(dec.dd, W, H, 2, 4, 1)
 
-        # ---- reference stacks (resident ring) ----
-        has_inter = fi.frame_type != I_FRAME and bool(plan.inter.any())
-        up = self._upload
-        if has_inter:
-            if refs[0].pad != PADDING:
-                raise RuntimeError("ref pad mismatch")
-            rp = [self._ref_planes(dec, r) for r in refs]
-            ystack, ustack, vstack = (torch.stack([p[i] for p in rp])
-                                      for i in range(3))
-        else:
-            ystack = torch.zeros((1, 1, 1), dtype=torch.int16,
-                                 device=self.device)
-            ustack = vstack = ystack
-        _check_bounds(plan, seg_list, recs, H, W, sizes, len(refs))
+            # ---- reference stacks (resident ring) ----
+            has_inter = fi.frame_type != I_FRAME and bool(plan.inter.any())
+            up = self._upload
+            if has_inter:
+                if refs[0].pad != PADDING:
+                    raise RuntimeError("ref pad mismatch")
+                rp = [self._ref_planes(dec, r) for r in refs]
+                ystack, ustack, vstack = (torch.stack([p[i] for p in rp])
+                                          for i in range(3))
+            else:
+                ystack = torch.zeros((1, 1, 1), dtype=torch.int16,
+                                     device=self.device)
+                ustack = vstack = ystack
+            _check_bounds(plan, seg_list, recs, H, W, sizes, len(refs))
 
-        gstack = np.stack([plan.ly[k].reshape(-1) for k in LY_KEYS])
-        cstack = np.stack([plan.ch[k].reshape(-1) for k in CH_KEYS] +
-                          [plan.avg.reshape(-1), plan.inter.reshape(-1)])
-        q4y = np.stack([plan.qp4["y"], plan.ls4["y"]])
-        q4c = np.stack([plan.qp4["c"], plan.ls4["c"]])
-        coef_uv = np.stack([plan.coef["u"], plan.coef["v"]])
+            gstack = np.stack([plan.ly[k].reshape(-1) for k in LY_KEYS])
+            cstack = np.stack([plan.ch[k].reshape(-1) for k in CH_KEYS] +
+                              [plan.avg.reshape(-1), plan.inter.reshape(-1)])
+            q4y = np.stack([plan.qp4["y"], plan.ls4["y"]])
+            q4c = np.stack([plan.qp4["c"], plan.ls4["c"]])
+            coef_uv = np.stack([plan.coef["u"], plan.coef["v"]])
 
-        qm = None
-        if h.qmtx:
-            wsel_y, wsel_c, banks = DP.build_qm_operands(dec, plan, blks)
-            qm = {"wsel_y": up(wsel_y), "wsel_c": up(wsel_c)}
-            for k in ("y", "u", "v"):
-                qm[k] = {sz: up(b) for sz, b in banks[k].items()}
+            qm = None
+            if h.qmtx:
+                wsel_y, wsel_c, banks = DP.build_qm_operands(dec, plan, blks)
+                qm = {"wsel_y": up(wsel_y), "wsel_c": up(wsel_c)}
+                for k in ("y", "u", "v"):
+                    qm[k] = {sz: up(b) for sz, b in banks[k].items()}
 
         yf, uf, vf = pixel_core(
             ystack, ustack, vstack, up(gstack), up(cstack),
@@ -615,7 +617,6 @@ class DeviceFrameDecoder:
             deblocking=bool(h.deblocking), cdef_damping=dec.cdef_damping,
             cs=cs, s_y=s_y, s_u=s_u, s_v=s_v, qpclpf=qp >> 4,
             out8=(bd == 8))
-        RUNS += 1
 
         # resident ring update (before the pull: both are queued)
         self.ring[dec.rec.frame_num] = (ry, ru, rv)

@@ -37,6 +37,7 @@ import threading
 
 import numpy as np
 
+from .. import trace as TR
 from . import device_pixels as DP
 from .decoder import decode_stream, resolve_device
 
@@ -63,7 +64,7 @@ class Rendezvous:
         self.closed = False
 
     def wait(self, sid):
-        with self.cond:
+        with TR.span("dec.rendezvous"), self.cond:
             gen = self.generation
             if not self.closed:
                 self.count += 1
@@ -128,6 +129,7 @@ class ShardedExecutor:
         DP.merge_exec_output(dec, plan, self.out[sid])
         self.rendezvous.wait(sid)   # keep self.out until every stream merged
 
+    @TR.spanned("dec.batch_exec")
     def _run(self):
         sig = [{k: v for k, v in s.items() if k != "has_avg"}
                for s in self.static]

@@ -37,6 +37,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import trace as TR
 from ..bitstream import BitWriter
 from ..frame import YuvFrame, new_ref_frame
 from ..tables import (CHROMA_QP, MAX_REF_FRAMES, MAX_REORDER_BUFFER,
@@ -1464,6 +1465,7 @@ class Encoder:
             self._rc_start_bits = start_bits_frame
         return self._encode_frame_tail(qp)
 
+    @TR.spanned("enc.encoder")
     def _encode_frame_tail(self, qp):
         """Post-SB-loop frame work: in-loop filters, RC update, ref window
         (enc/encode_frame.c:760-850)."""
@@ -1561,6 +1563,7 @@ class Encoder:
                 self.rec.u[:] = packed[H:2 * H].astype(self.rec.u.dtype)
                 self.rec.v[:] = packed[2 * H:].astype(self.rec.v.dtype)
 
+    @TR.spanned("enc.clpf_apply")
     def _clpf_apply(self, plane, strength, fb_size_log2, enable_fb, qp):
         """clpf_frame with the encoder decision fn writing bits."""
         p = self.params
@@ -1622,6 +1625,7 @@ class Encoder:
         return bits
 
 
+@TR.spanned("enc.clip", root=True)
 def encode_sequence(params: EncParams, yuv: bytes, progress=None,
                     device=None, schedule_only=False, encoder_hook=None,
                     megakernel=True):
@@ -1921,7 +1925,8 @@ def encode_sequence(params: EncParams, yuv: bytes, progress=None,
             rfn = [enc.ref[r].frame_num if 0 <= r < len(enc.ref)
                    else None for r in fi.ref_array]
             start_bits = enc.writer.get_bit_pos()
-            enc.encode_frame()
+            with TR.span("enc.frame"):
+                enc.encode_frame()
             end_bits = enc.writer.get_bit_pos()
             num_encoded += 1
             out += enc.writer.flush_frame()

@@ -39,6 +39,7 @@ import sys
 import numpy as np
 import torch
 
+from .. import trace as TR
 from ..tables import COEFFS_STANDARD, GDEQUANT, LOWPASS_K, ZIGZAG, log2i
 from ..ops.transform import fwd_transform_batch, inv_transform_batch, _i16
 from ..ops.quant import quantize_batch
@@ -589,6 +590,7 @@ def scale2(plane):
     return (((a + b + 1) >> 1) + ((c + d + 1) >> 1)) >> 1
 
 
+@TR.spanned("enc.turbo")
 def decide_frame(enc, pull=True):
     """Run the batched decision pass on enc.device; returns per-size
     numpy decision grids + the final leaf map (one pull each for the

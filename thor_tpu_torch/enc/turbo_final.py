@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace as TR
 from ..tables import CHROMA_QP, log2i
 from ..ops.transform import fwd_transform_batch, _i16
 from ..ops.quant import quantize_batch
@@ -153,41 +154,42 @@ def _enc_intra_waves(y_pl, u_pl, v_pl, org_y, org_u, org_v, segs, segcls,
     counts = active.sum(axis=1)
     assert (active == (np.arange(LANES)[None, :] < counts[:, None])).all()
     segs_dev = torch.from_numpy(np.ascontiguousarray(segs)).to(dev).long()
-    for si in range(S):
-        cls = int(segcls[si])
-        L = int(counts[si])
-        if cls == 0 or L == 0:
-            continue
-        n = sizes[cls - 1]
-        nc = n >> 1
-        qs, qsc = min(n, 16), min(nc, 16)
-        nd = segs_dev[si, :L]
-        yy, xx = nd[:, 1], nd[:, 2]
-        mode = nd[:, 4]
-        ur, dl = nd[:, 5] > 0, nd[:, 6] > 0
-        pred = pred_mode(y_pl, yy, xx, n, ur, dl, mode)
-        cqy, cby, rec = _plane_enc(
-            _slices(org_y, yy, xx, n), pred, n, qp,
-            wm=qm["fiy"][n] if qm else None,
-            iw=qm["iiy"][n] if qm else None)
-        yc, xc = yy >> 1, xx >> 1
-        pu = pred_mode(u_pl, yc, xc, nc, ur, dl, mode)
-        pv = pred_mode(v_pl, yc, xc, nc, ur, dl, mode)
-        if cfl:
-            pu, pv = _cfl_j(pred, pu, pv, rec, n, bd)
-        wmc = qm["fic"][nc] if qm else None
-        iwc = qm["iic"][nc] if qm else None
-        cqu, cbu, recu = _plane_enc(_slices(org_u, yc, xc, nc), pu, nc,
-                                    qpc, wm=wmc, iw=iwc)
-        cqv, cbv, recv = _plane_enc(_slices(org_v, yc, xc, nc), pv, nc,
-                                    qpc, wm=wmc, iw=iwc)
-        _write(y_pl, rec.to(y_pl.dtype), yy, xx, WMAX)
-        _write(u_pl, recu.to(u_pl.dtype), yc, xc, WC)
-        _write(v_pl, recv.to(v_pl.dtype), yc, xc, WC)
-        icq[0, si, :L, :qs, :qs] = cqy
-        icq[1, si, :L, :qsc, :qsc] = cqu
-        icq[2, si, :L, :qsc, :qsc] = cqv
-        icb[si, :L] = torch.stack([cby, cbu, cbv], dim=1).to(I32)
+    with TR.span("enc.intra_waves"):
+        for si in range(S):
+            cls = int(segcls[si])
+            L = int(counts[si])
+            if cls == 0 or L == 0:
+                continue
+            n = sizes[cls - 1]
+            nc = n >> 1
+            qs, qsc = min(n, 16), min(nc, 16)
+            nd = segs_dev[si, :L]
+            yy, xx = nd[:, 1], nd[:, 2]
+            mode = nd[:, 4]
+            ur, dl = nd[:, 5] > 0, nd[:, 6] > 0
+            pred = pred_mode(y_pl, yy, xx, n, ur, dl, mode)
+            cqy, cby, rec = _plane_enc(
+                _slices(org_y, yy, xx, n), pred, n, qp,
+                wm=qm["fiy"][n] if qm else None,
+                iw=qm["iiy"][n] if qm else None)
+            yc, xc = yy >> 1, xx >> 1
+            pu = pred_mode(u_pl, yc, xc, nc, ur, dl, mode)
+            pv = pred_mode(v_pl, yc, xc, nc, ur, dl, mode)
+            if cfl:
+                pu, pv = _cfl_j(pred, pu, pv, rec, n, bd)
+            wmc = qm["fic"][nc] if qm else None
+            iwc = qm["iic"][nc] if qm else None
+            cqu, cbu, recu = _plane_enc(_slices(org_u, yc, xc, nc), pu, nc,
+                                        qpc, wm=wmc, iw=iwc)
+            cqv, cbv, recv = _plane_enc(_slices(org_v, yc, xc, nc), pv, nc,
+                                        qpc, wm=wmc, iw=iwc)
+            _write(y_pl, rec.to(y_pl.dtype), yy, xx, WMAX)
+            _write(u_pl, recu.to(u_pl.dtype), yc, xc, WC)
+            _write(v_pl, recv.to(v_pl.dtype), yc, xc, WC)
+            icq[0, si, :L, :qs, :qs] = cqy
+            icq[1, si, :L, :qsc, :qsc] = cqu
+            icq[2, si, :L, :qsc, :qsc] = cqv
+            icb[si, :L] = torch.stack([cby, cbu, cbv], dim=1).to(I32)
     return icq, icb
 
 
@@ -236,6 +238,7 @@ def _qm_operands(enc, qp, device):
 # device finalization
 # ---------------------------------------------------------------------------
 
+@TR.spanned("enc.turbo_final")
 def finalize_core(org_y, org_u, org_v, ystack, ustack, vstack, gstack,
                   cstack, q4y, q4c, segs, segcls, qm, H: int, W: int,
                   bd: int, pad: int, pad_c: int, has_inter: bool,
@@ -716,13 +719,14 @@ def encode_frame_turbo_final(enc, dec):
     # the C plan walk; the Python walk where NATIVE is off or the C walk
     # cannot hold the frame (its record buffer), as thor_tpu does
     nt = nodes = None
-    if NATIVE:
-        plan = FramePlan(w, h)
-        res = TN.plan_frame(enc, dec, plan)
-        if res is not None:
-            nt, _recs, intra_list = res
-    if nt is None:
-        nodes, plan, intra_list = plan_frame(enc, dec)
+    with TR.span("enc.plan"):
+        if NATIVE:
+            plan = FramePlan(w, h)
+            res = TN.plan_frame(enc, dec, plan)
+            if res is not None:
+                nt, _recs, intra_list = res
+        if nt is None:
+            nodes, plan, intra_list = plan_frame(enc, dec)
 
     # intra wave segments
     sizes = tuple(s for s in INTRA_SIZES if s <= min(h, w))
@@ -817,8 +821,9 @@ def encode_frame_turbo_final(enc, dec):
 
     wc = cq_uv.shape[1] // 2
     coefq = {"y": cq_y, "u": cq_uv[:, :wc], "v": cq_uv[:, wc:]}
-    if nt is not None:
-        TN.emit_frame(enc, nt, coefq, icq, icb, ipos)
-    else:
-        icoef = {"y": icq[0], "u": icq[1], "v": icq[2], "cb": icb}
-        emit_nodes(enc, nodes, coefq, icoef, ipos)
+    with TR.span("enc.emit"):
+        if nt is not None:
+            TN.emit_frame(enc, nt, coefq, icq, icb, ipos)
+        else:
+            icoef = {"y": icq[0], "u": icq[1], "v": icq[2], "cb": icb}
+            emit_nodes(enc, nodes, coefq, icoef, ipos)

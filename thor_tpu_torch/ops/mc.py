@@ -27,32 +27,20 @@ the XLA gathers on any input.
 `_luma_variants` (thor_tpu/ops/mc.py:47-86) pre-filters a padded plane
 into its 16 quarter-pel variants, the stacks the wavefront device
 encoder (enc/device_lc.py) reads its luma MC from.
+
+Each kernel launch counts one on trace's `mc.luma_launches`,
+`mc.chroma_uv_launches` (the two-plane case) or `mc.chroma_launches`
+(one plane).
 """
 from __future__ import annotations
 
-import threading
-
 import torch
 
+from .. import trace as TR
 from ..kernels import build
 from ..tables import COEFFS_BIPRED, COEFFS_STANDARD, LOWPASS_K, to_device
 
 OP_NONE, OP_COPY, OP_SIXTAP, OP_LOWPASS = 0, 1, 2, 3
-
-# kernel launches since the counts were last set to 0 (plain integers;
-# chip_smoke.py and the tests read and reset them): luma, chroma U+V (the
-# two-plane case) and chroma of one plane.  They count under a lock, so
-# that encoders in several threads (enc/multistream.py) lose no launch.
-LUMA_LAUNCHES = 0
-CHROMA_UV_LAUNCHES = 0
-CHROMA_LAUNCHES = 0
-_COUNT_LOCK = threading.Lock()
-
-
-def count_launch(counter: str):
-    """Adds one to the launch counter named `counter`."""
-    with _COUNT_LOCK:
-        globals()[counter] += 1
 
 
 def _jidx(i, n: int):
@@ -171,7 +159,7 @@ def mc_cells_luma(ref_stack, rsel, y0, x0, op, vf, hf, fs, cs: int,
         *[c.data_ptr() for c in cells], n, cs, bitdepth, out.data_ptr(),
         stream)
     build.check(lib, rc, "mc_luma_cells")
-    count_launch("LUMA_LAUNCHES")
+    TR.count("mc.luma_launches")
     return out
 
 
@@ -195,8 +183,8 @@ def _chroma_kernel(u_stack, v_stack, rsel, y0, x0, op, vf, hf, cs: int,
         *[c.data_ptr() for c in cells], n, cs, bitdepth, outs[0].data_ptr(),
         None if v_stack is None else outs[1].data_ptr(), stream)
     build.check(lib, rc, "mc_chroma_cells")
-    count_launch("CHROMA_LAUNCHES" if v_stack is None
-                 else "CHROMA_UV_LAUNCHES")
+    TR.count("mc.chroma_launches" if v_stack is None
+             else "mc.chroma_uv_launches")
     return outs
 
 
