@@ -27,8 +27,23 @@ exit code is non-zero:
   3. the main path: the 8-frame 1080p LDB-LC bench stream, whose output
      must hash to BENCH_REC_SHA256, with the MC kernels' launch counts
      and the frame decoder's run count taken over that decode alone (it
-     must launch the luma and the U+V kernel); the cells that pixel_core
-     receives for frame 1 are kept;
+     must launch the luma and the U+V kernel), traced: the intra wave
+     kernel (csrc/intra_wave.cu) must launch once per segment that the
+     spans dec.intra_waves count and that the frames' segment rows
+     hold (a size class and an active lane), BENCH_INTRA_SEGMENTS in
+     all; the cells that pixel_core receives for frame 1, the intra
+     scan's inputs of frame 0 and every frame's segments are kept;
+ 3b. the intra wave kernel against its plain version, the torch loop on
+     CPU copies of frame 0's inputs: all three planes bit-equal
+     (max_abs_err 0), the frame's kernel time beside the loop's
+     (plain_ms, on the CPU) and the bound, as the `kernels` line's
+     intra_wave_segment entry; then the kernel timed per size class on
+     the stream's segments over frame 0's planes: ms a segment between
+     events around the class's launches (call_ms: the host's issue
+     included) and the kernel alone in torch.profiler's trace, beside
+     the bound: the bytes its blocks must move (the references they
+     use, the residual, the reconstruction, the segment rows) at
+     3.35 TB/s;
   4. each kernel against its plain version on frame 1's cells (bit
      depths 8 and 10), then both timed on the real and the random cells
      at 8 bits, beside the bound: the bytes the function must move (each
@@ -176,13 +191,15 @@ The kernels' times are device times: the launches queue behind a sleeping
 kernel, so the events time the card's work and not the Python that issues
 it (`call_ms`, one call timed alone, includes that; `kernel_ms` is the
 kernel alone in torch.profiler's trace, without the gap between queued
-launches).  The second-to-last line is a JSON object with the kernels'
-results, the last line {"ok": true, "device": {...}}.
+launches; the intra wave kernel's `ms` is the sum of its launches there
+over one frame).  The second-to-last line is a JSON object with the
+kernels' results, the last line {"ok": true, "device": {...}}.
 
 `--time-mc DIR` times the MC wrappers of the checkout at DIR instead (see
 `time_mc`), for an A/B of two checkouts on one card.
 `--profile-tempinterp` traces one 1080p temporal interpolation with
 torch.profiler instead (see `profile_tempinterp`).
+`--intra` builds the kernels and runs phases 2, 3, 3b and 7 alone.
 `--turbo` builds the kernels and runs phase 8 alone (all 6 frames),
 `--exact` phase 9, `--device-enc` phase 10 with the 1080p P frame and
 the operation counts, `--multistream` phase 11, `--me` phase 12 on the
@@ -219,6 +236,8 @@ GOLDENS = ("tiny64_ldblc", "noise_cif_ldblc", "smooth_cif_ldblc",
 # and the sha256 of its reference decode (tests/test_torch_decode.py holds
 # both equal to bench.py's)
 BENCH_STREAM = os.path.join(REPO, "benchmarks", "stream_1080p_lc.bit")
+# intra wave segments of the bench stream's decode (PERF.md)
+BENCH_INTRA_SEGMENTS = 2434
 BENCH_REC_SHA256 = ("287b83855649b54ea8deb70db12cb222"
                     "f16561eb25150ecdb1217823111425ef")
 H1080, W1080 = 1088, 1920
@@ -737,8 +756,10 @@ def phase_goldens(device):
 
 def phase_main_path(device, card):
     """Phase 3: the 1080p bench stream, with launch and run counts taken
-    over this decode alone; returns the counts and frame 1's MC inputs
-    as pixel_core received them."""
+    over this decode alone; returns the counts, frame 1's MC inputs as
+    pixel_core received them, the frames, their seconds and the intra
+    scan's inputs (frame 0's, and every frame's segments)."""
+    import numpy as np
     import torch
     from thor_tpu_torch.dec import decoder as PD
     from thor_tpu_torch.dec import device_frame as DF
@@ -754,20 +775,40 @@ def phase_main_path(device, card):
         times.append(time.time() - t0)
         return r
 
+    frame0, seg_rows, seg_cls = [], [], []
+    orig_waves = DF._intra_waves
+
+    def keep_waves(*args):
+        if not frame0:      # copies: the call updates the planes
+            frame0.extend(a.clone() if torch.is_tensor(a) else a
+                          for a in args)
+        seg_rows.append(args[3])
+        seg_cls.append(args[4])
+        return orig_waves(*args)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    TR.reset(*PD.ROUTE_COUNTERS)
+    TR.reset(*PD.ROUTE_COUNTERS, "dec.intra_kernel_segments")
     PD.Decoder.decode_frame = timed
+    DF._intra_waves = keep_waves
     seen, orig_core = capture_pixel_core(DF)
     core = DF.pixel_core
+    was = TR.enabled()
+    TR.drain()
+    TR.enable()
     t0 = time.time()
     try:
         _, frames = PD.decode_stream(data, device=device)
     finally:
         PD.Decoder.decode_frame = orig
         DF.pixel_core = orig_core
+        DF._intra_waves = orig_waves
+        TR.enable(was)
     wall = time.time() - t0
+    segments = sum(r.attrs["segments"] for r in TR.drain()
+                   if r.name == "dec.intra_waves")
+    kernel_segments = TR.counter("dec.intra_kernel_segments")
     launches = read_launches()
     runs = core.calls
     fused = PD.route_frames()["fused"]
@@ -778,6 +819,15 @@ def phase_main_path(device, card):
     if runs != len(frames) or fused != runs or len(frames) != 8:
         raise AssertionError(f"pixel_core ran {runs} times, the fused "
                              f"route took {fused} of {len(frames)} frames")
+    seg_rows, seg_cls = np.concatenate(seg_rows), np.concatenate(seg_cls)
+    # counted here from the rows pixel_core passed in: a segment with a
+    # size class and at least one active lane
+    live = int(((seg_cls != 0) & (seg_rows[:, :, 0] > 0).any(axis=1)).sum())
+    if not kernel_segments == segments == live == BENCH_INTRA_SEGMENTS:
+        raise AssertionError(
+            f"intra wave kernel: {kernel_segments} segments launched, the "
+            f"spans count {segments}, the frames' rows hold {live}, "
+            f"expected {BENCH_INTRA_SEGMENTS}")
     check_launches(launches, "bench_decode")
     steady = times[3:] if len(times) > 4 else times
     fps = len(steady) / sum(steady)
@@ -787,8 +837,148 @@ def phase_main_path(device, card):
           f"whole stream {len(frames) / wall:.4f} fps ({wall:.3f} s); "
           f"per-frame s {[round(t, 4) for t in times]}; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; "
-          f"launches {launches}, runs {runs}; card {card}", flush=True)
-    return launches, pixel_core_cells(DF, seen[1]), frames, times
+          f"launches {launches}, runs {runs}; intra wave segments "
+          f"{segments}, all through the kernel; card {card}", flush=True)
+    waves = {"frame0": frame0, "segs": seg_rows, "segcls": seg_cls,
+             "launches": kernel_segments}
+    return launches, pixel_core_cells(DF, seen[1]), frames, times, waves
+
+
+def intra_block_bytes(segs, n):
+    """Bytes the intra wave kernel must move for the active blocks of
+    segs (all of size n): the reference samples each block's prediction
+    uses (n on top unless on row 0, plus the up-right one when available;
+    the same on the left; the corner), in luma and both chroma planes,
+    the residual read and the reconstruction written, and the segment
+    rows read, all int32."""
+    rows = segs[segs[:, :, 0] > 0]
+    y, x, ur, dl = rows[:, 1], rows[:, 2], rows[:, 5] > 0, rows[:, 6] > 0
+    total = 0
+    for m, planes in ((n, 1), (n // 2, 2)):
+        refs = ((y > 0) * (m + ur) + (x > 0) * (m + dl) + 1).sum()
+        total += planes * (int(refs) + 2 * m * m * len(rows))
+    return 4 * (total + 7 * len(rows))
+
+
+def intra_kernel_ms(run):
+    """Summed device time of the intra wave kernel's launches in one
+    run() as torch.profiler's CUDA trace records them, in ms, and the
+    launch count; (None, 0) where the trace holds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if "intra_wave_segment" in e.key]
+    if not ev:
+        return None, 0
+    return (sum(e.device_time_total for e in ev) / 1e3,
+            sum(e.count for e in ev))
+
+
+def phase_intra(device, card, waves):
+    """Phase 3b: the intra wave kernel against its plain version, the
+    torch loop of dec/device_frame.py:_intra_waves on CPU copies, on
+    frame 0's inputs as pixel_core passed them (max_abs_err 0 in all
+    three planes), the frame timed beside its bound; then the kernel on
+    the segments of all the stream's frames, one size class at a time,
+    over frame 0's planes: ms a segment, the kernel alone, the bound.
+    Returns the per-class numbers and the kernel's entry of the
+    `kernels` line."""
+    import torch
+    from thor_tpu_torch.dec import device_frame as DF
+    frame0 = waves["frame0"]
+    y, u, v, segs0, cls0, ry, ru, rv, bd, cfl, sizes = frame0
+
+    def live_of(segs, segcls):
+        return (segcls != 0) & (segs[:, :, 0] > 0).any(axis=1)
+
+    def bytes_of(segs, segcls):
+        return sum(intra_block_bytes(segs[segcls == c], sizes[c - 1])
+                   for c in {int(k) for k in segcls})
+
+    cpu = [t.cpu() for t in (y, u, v, ry, ru, rv)]
+    t0 = time.perf_counter()
+    want = DF._intra_waves(*cpu[:3], segs0, cls0, *cpu[3:], bd, cfl, sizes)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = [t.clone() for t in (y, u, v)]
+    DF._intra_waves_cuda(*got, segs0, cls0, ry, ru, rv, bd, cfl, sizes)
+    torch.cuda.synchronize()
+    errs = [int((g.cpu() - w).abs().max()) for g, w in zip(got, want)]
+    live0 = live_of(segs0, cls0)
+    nseg0 = int(live0.sum())
+    print(f"phase 3b: intra wave kernel against the torch loop on the "
+          f"CPU, frame 0 of the bench stream ({nseg0} segments, "
+          f"{int((segs0[live0][:, :, 0] > 0).sum())} blocks, bd {bd}, "
+          f"cfl {int(cfl)}): max_abs_err {errs} (Y, U, V)", flush=True)
+    if max(errs) != 0:
+        raise AssertionError("the intra wave kernel disagrees with the "
+                             "torch loop on frame 0 of the bench stream")
+    work = [t.clone() for t in (y, u, v)]
+
+    def frame():
+        DF._intra_waves_cuda(*work, segs0, cls0, ry, ru, rv, bd, cfl,
+                             sizes)
+
+    f_call = call_ms(frame, reps=5, warmup=1)
+    f_kernel, f_count = intra_kernel_ms(frame)
+    f_bytes = bytes_of(segs0[live0], cls0[live0])
+    f_bound = f_bytes / HBM_BYTES_PER_S * 1e3
+    entry = {"name": "intra_wave_segment", "route": "cuda",
+             "source": SRC + "intra_wave.cu",
+             "replaces": "thor_tpu/dec/device_frame.py:119 (a lax.scan of "
+                         "XLA ops; the torch loop is the plain version)",
+             "launches": waves["launches"],
+             "launches_by_path": {"bench_decode": waves["launches"]},
+             "max_abs_err": max(errs),
+             # one frame: every launch summed; plain_ms is the loop on the
+             # host's CPU, since on a card _intra_waves runs the kernel
+             "ms": f_kernel, "plain_ms": plain_ms, "plain_on": "cpu",
+             "bound_ms": f_bound, "bound_by": "bytes",
+             "library_ms": None, "bound_us": f_bound * 1e3,
+             "share": f_bound / (f_kernel or f_call), "call_ms": f_call,
+             "kernel_ms": f_kernel, "kernel_launches": f_count,
+             "copy_ms": None, "bytes": f_bytes,
+             "cells": f"bench stream frame 0 ({nseg0} segments)"}
+    print(f"phase 3b: intra wave kernel, frame 0: kernel alone "
+          f"{'not measured' if f_kernel is None else f'{f_kernel:.4f} ms'}"
+          f" over {f_count} launches, the call with its issue "
+          f"{f_call:.4f} ms, the torch loop on the CPU {plain_ms:.1f} ms; "
+          f"bound {f_bound * 1e3:.3f} us ({f_bytes} bytes); card {card}",
+          flush=True)
+
+    segs, segcls = waves["segs"], waves["segcls"]
+    live = live_of(segs, segcls)
+    out = {}
+    for c in sorted({int(k) for k in segcls[live]}):
+        sel = live & (segcls == c)
+        s_c, k_c, n = segs[sel], segcls[sel], sizes[c - 1]
+        work = [t.clone() for t in (y, u, v)]
+
+        def run():
+            DF._intra_waves_cuda(*work, s_c, k_c, ry, ru, rv, bd, cfl,
+                                 sizes)
+
+        nseg = len(s_c)
+        # events around whole calls: a frame's ~1,900 launches fill the
+        # launch queue, so device_ms's sleep cannot hide their issue
+        ms = call_ms(run, reps=5, warmup=1) / nseg
+        kernel_ms, count = intra_kernel_ms(run)
+        kernel_ms = kernel_ms / count if count else None
+        nbytes = intra_block_bytes(s_c, n) / nseg
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[n] = {"segments": nseg,
+                  "blocks": int((s_c[:, :, 0] > 0).sum()),
+                  "call_ms": ms, "kernel_ms": kernel_ms,
+                  "bytes": nbytes, "bound_ms": bound_ms,
+                  "share": bound_ms / (kernel_ms or ms)}
+        print(f"phase 3b: intra wave kernel, {n}x{n} blocks: {nseg} "
+              f"segments of the stream ({out[n]['blocks']} blocks), "
+              f"{ms * 1e3:.3f} us a segment, kernel alone "
+              f"{'not measured' if kernel_ms is None else f'{kernel_ms * 1e3:.3f} us'}"
+              f", bound {bound_ms * 1e3:.4f} us ({nbytes:.0f} bytes), "
+              f"share {out[n]['share']:.4f}; card {card}", flush=True)
+    return out, entry
 
 
 def capture_pixel_core(DF):
@@ -2753,6 +2943,9 @@ def main():
     ap.add_argument("--profile-tempinterp", action="store_true",
                     help="trace one 1080p temporal interpolation and run "
                     "nothing else")
+    ap.add_argument("--intra", action="store_true",
+                    help="build the kernels and run phases 2, 3, 3b (the "
+                    "intra wave kernel) and 7 alone")
     ap.add_argument("--turbo", action="store_true",
                     help="build the kernels and run phase 8 (the turbo "
                     "encoder) alone")
@@ -2797,6 +2990,14 @@ def main():
           f"({build.library_path()})", flush=True)
     print(build.build_log.strip(), flush=True)
 
+    if args.intra:
+        phase_goldens(device)
+        _, real, _, fused_times, waves = phase_main_path(device, card)
+        intra, intra_kernel = phase_intra(device, card, waves)
+        _, _, unfused = phase_unfused(device, card, real, fused_times)
+        print(json.dumps({"intra_waves": intra, "unfused_decode": unfused}))
+        print(json.dumps({"kernels": [intra_kernel]}))
+        return 0
     if args.turbo:
         _, _, turbo = phase_turbo(device, card, N=6)
         print(json.dumps({"turbo_encode": turbo}))
@@ -2826,7 +3027,9 @@ def main():
         return 0
     rand = phase_kernels(device, card)
     phase_goldens(device)
-    launches, real, frames, fused_times = phase_main_path(device, card)
+    launches, real, frames, fused_times, waves = phase_main_path(device,
+                                                                 card)
+    intra, intra_kernel = phase_intra(device, card, waves)
     res = phase_real_cells(device, card, real, rand)
     tile_launches, tiles = phase_tiles(device, card)
     phase_tempinterp(device, card, frames)
@@ -2893,6 +3096,8 @@ def main():
             "bytes": r["bytes"], "cells": head,
             "other_cells": {what: {k: x.get(k) for k in keys}
                             for what, x in sets.items()}})
+    kernels.append(intra_kernel)
+    print(json.dumps({"intra_waves": intra}))
     print(json.dumps({"unfused_decode": unfused}))
     print(json.dumps({"turbo_encode": turbo}))
     print(json.dumps({"exact_encode": exact}))

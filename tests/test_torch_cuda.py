@@ -15,6 +15,7 @@ from thor_tpu_torch import tables as T
 from thor_tpu_torch import trace as TR
 from thor_tpu_torch.kernels import build
 from thor_tpu_torch.ops import mc as MC
+from torch_intra_cases import intra_planes, quadtree_recs, wave_inputs
 
 LUMA = ("rsel", "y0", "x0", "op", "vf", "hf", "fs")
 CHROMA = ("rsel", "y0", "x0", "op", "vf", "hf")
@@ -456,6 +457,77 @@ def test_unfused_routes_decode_on_the_card(cuda, name, fused):
     _, frames = decode_stream(data, device=cuda, fused=fused)
     assert b"".join(frames) == golden
     assert PD.route_frames()["fused"] == 0
+
+
+# ------------------------------------------- the intra wave scan kernel
+
+def _intra_route(dev, planes, res, segs, segcls, bd, cfl, sizes):
+    from thor_tpu_torch.dec import device_frame as PDF
+    H, W = res[0].shape[0] - 8, res[0].shape[1] - 16
+    cut = ((H, W), (H // 2, W // 2), (H // 2, W // 2))
+    rt = [torch.from_numpy(r).to(dev)[:h, :w] for r, (h, w) in zip(res, cut)]
+    out = PDF._intra_waves(*[torch.from_numpy(p.copy()).to(dev)
+                             for p in planes], segs, segcls, *rt, bd, cfl,
+                           sizes)
+    return [t.cpu() for t in out]
+
+
+def intra_frames(kind):
+    """(H, W, sb, apron, lanes, generation sizes, modes) of each frame of
+    one card case."""
+    if kind == "uniform":    # one size a frame, every mode and mode -1
+        return [(H, W, max(64, n), 136, 64, (n,), None)
+                for n, H, W in ((8, 128, 128), (16, 128, 128),
+                                (32, 128, 128), (64, 192, 256),
+                                (128, 384, 512))]
+    sizes = (8, 16, 32, 64, 128)
+    return [{"quadtree": (256, 384, 128, 136, 64, sizes, (-1, 11)),
+             # write windows end on the planes' last row and column
+             "edge": (256, 384, 128, 120, 64, sizes, (-1, 11)),
+             # no apron: reads and writes clamp (a block a segment)
+             "clamped": (256, 384, 128, 0, 1, sizes, (-1, 11))}[kind]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfl", [False, True])
+@pytest.mark.parametrize("bd", [8, 10, 12])
+@pytest.mark.parametrize("kind", ["quadtree", "uniform", "edge", "clamped"])
+def test_intra_wave_kernel_equals_the_torch_route(cuda, kind, bd, cfl):
+    """_intra_waves on the card (csrc/intra_wave.cu, one launch a
+    segment) equals its CPU route, the torch loop, bit for bit: random
+    quadtree frames of sizes 8-128 with blocks on row 0 and column 0 and
+    every ur/dl pair, frames of one size with all 10 modes and one out of
+    range, write windows that end on the apron's edge, and clamped reads
+    and writes; dec.intra_kernel_segments counts the segments."""
+    from thor_tpu_torch.dec import device_frame as PDF
+    from thor_tpu_torch.dec import native_parse as NP
+    rng = np.random.default_rng(1500 + 10 * bd + cfl)
+    remapped = set()
+    for H, W, sb, apron, lanes, gen, modes in intra_frames(kind):
+        recs = quadtree_recs(rng, H, W, gen, sb, modes or (0, 10))
+        if modes is None:
+            recs[:, NP.B_INTRA_MODE] = np.arange(len(recs)) % 12 - 1
+        sizes = tuple(s for s in PDF.INTRA_SIZES if s <= min(H, W))
+        nseg, segs, segcls = wave_inputs(recs, H, W, sizes, sb, lanes)
+        if kind == "quadtree":
+            act = segs[:, :, 0] > 0
+            assert set(zip(segs[act, 5], segs[act, 6])) == {
+                (0, 0), (0, 1), (1, 0), (1, 1)}
+        planes, res = intra_planes(rng, H, W, bd, apron)
+        before = TR.counter("dec.intra_kernel_segments")
+        got = _intra_route(cuda, planes, res, segs, segcls, bd, cfl, sizes)
+        torch.cuda.synchronize()
+        assert TR.counter("dec.intra_kernel_segments") == before + nseg
+        want = _intra_route("cpu", planes, res, segs, segcls, bd, cfl,
+                            sizes)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (kind, H, W)
+        if cfl:
+            off = _intra_route(cuda, planes, res, segs, segcls, bd, False,
+                               sizes)
+            remapped |= {c for c in (1, 2)
+                         if not torch.equal(off[c], got[c])}
+    assert remapped == ({1, 2} if cfl else set())   # CFL engaged in U, V
 
 
 # ------------------------------------------------------ the turbo encoder

@@ -10,7 +10,9 @@ from thor_tpu.dec import device_frame as JDF
 from thor_tpu.dec import native_parse as NP
 from thor_tpu.ops import intra_batch as JIB
 from thor_tpu_torch.dec import device_frame as PDF
+from thor_tpu_torch import trace as TR
 from thor_tpu_torch.ops import intra_batch as PIB
+from torch_intra_cases import intra_planes, quadtree_recs, wave_inputs
 
 torch.set_num_threads(1)
 
@@ -101,28 +103,6 @@ def test_cfl(n, bd):
     assert np.array_equal(np.asarray(want_u)[1], stack[1][1])
 
 
-def _quadtree_recs(rng, H, W, sizes):
-    """Intra block records tiling an H x W frame, in coding order."""
-    recs = []
-
-    def split(y, x, s):
-        if s > sizes[0] and (s > sizes[-1] or rng.random() < 0.6):
-            h = s // 2
-            for dy, dx in ((0, 0), (0, h), (h, 0), (h, h)):
-                split(y + dy, x + dx, h)
-            return
-        r = np.zeros(NP.BREC_W, np.int32)
-        r[NP.B_YPOS], r[NP.B_XPOS], r[NP.B_SIZE] = y, x, s
-        r[NP.B_MODE] = JDF.MODE_INTRA
-        r[NP.B_INTRA_MODE] = rng.integers(0, 10)
-        recs.append(r)
-
-    for y in range(0, H, 64):
-        for x in range(0, W, 64):
-            split(y, x, 64)
-    return np.stack(recs)
-
-
 @pytest.mark.parametrize("cfl", [False, True])
 def test_intra_waves(cfl):
     """The whole intra scan of one 64x128 frame whose inter cells are
@@ -131,7 +111,7 @@ def test_intra_waves(cfl):
     rng = np.random.default_rng(60 + cfl)
     H, W, bd = 64, 128, 8
     sizes = (8, 16, 32, 64)
-    recs = _quadtree_recs(rng, H, W, sizes)
+    recs = quadtree_recs(rng, H, W, sizes)
     seg_list = JDF.build_wave_segments(recs, H, W, sizes)
     port_list = PDF.build_wave_segments(recs, H, W, sizes)
     assert len(port_list) == len(seg_list) and all(
@@ -164,3 +144,31 @@ def test_intra_waves(cfl):
                            cfl, sizes)
     for w, g in zip(want, got):
         assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("cfl", [False, True])
+def test_intra_waves_cpu_route_counts(cfl):
+    """On CPU planes _intra_waves runs the torch loop: its span counts
+    the segments with an active block (not the empty class-1 segment nor
+    the spare rows), and the kernel's counter does not move."""
+    rng = np.random.default_rng(70 + cfl)
+    H, W, bd = 64, 128, 10
+    sizes = (8, 16, 32, 64)
+    recs = quadtree_recs(rng, H, W, sizes)
+    nseg, segs, segcls = wave_inputs(recs, H, W, sizes, 64)
+    planes, res = intra_planes(rng, H, W, bd, PDF.AP)
+    cut = ((H, W), (H // 2, W // 2), (H // 2, W // 2))
+    before = TR.counter("dec.intra_kernel_segments")
+    was = TR.enabled()
+    TR.drain()
+    TR.enable()
+    try:
+        PDF._intra_waves(*map(torch.from_numpy, planes), segs, segcls,
+                         *[torch.from_numpy(r)[:h, :w]
+                           for r, (h, w) in zip(res, cut)], bd, cfl, sizes)
+        recs_t = TR.drain()
+    finally:
+        TR.enable(was)
+    (span,) = [r for r in recs_t if r.name == "dec.intra_waves"]
+    assert span.attrs == {"segments": nseg} and nseg > 10
+    assert TR.counter("dec.intra_kernel_segments") == before

@@ -3,7 +3,8 @@ thor_tpu/dec/device_frame.py).
 
 Per frame: dense residuals (dequant + inverse transform), inter MC from a
 ring of reference planes kept on the device (through the CUDA kernels of
-ops/mc.py), the intra wave scan with chroma-from-luma, then the in-loop
+ops/mc.py), the intra wave scan with chroma-from-luma (on the card the
+kernel of csrc/intra_wave.cu, a launch a segment), then the in-loop
 filters (deblock -> CDEF -> CLPF), display packing and reference edge
 padding.  The host uploads the parsed plan and pulls one packed display
 buffer.  Scope as in JAX: 4:2:0, no cfl_inter, no tb-split intra
@@ -25,6 +26,7 @@ import torch
 
 from .. import tables
 from .. import trace as TR
+from ..kernels import build
 from ..spec import filters as SF
 from ..spec import inter
 from ..ops import filters as OF
@@ -152,8 +154,10 @@ def _intra_waves(y_pl, u_pl, v_pl, segs, segcls, res_y, res_u, res_v,
     All blocks in a segment are one size and mutually independent
     (build_wave_segments guarantees it), so each segment reconstructs its
     active blocks batched.  segs/segcls are host arrays (numpy or CPU
-    tensors): the loop over segments runs on the host.  The planes are
-    updated in place and returned."""
+    tensors).  On CUDA planes the segments run in the kernel of
+    csrc/intra_wave.cu (`_intra_waves_cuda`); on CPU planes the loop
+    below issues them from the host.  The planes are updated in place
+    and returned."""
     maxv = (1 << bd) - 1
     WMAX = max(sizes)
     WC = max(WMAX // 2, 4)
@@ -162,6 +166,11 @@ def _intra_waves(y_pl, u_pl, v_pl, segs, segcls, res_y, res_u, res_v,
     segcls = np.asarray(segcls)
     nseg = 0
     with TR.span("dec.intra_waves") as sp:
+        if dev.type != "cpu":
+            sp.add(segments=_intra_waves_cuda(
+                y_pl, u_pl, v_pl, segs, segcls, res_y, res_u, res_v, bd, cfl,
+                sizes))
+            return y_pl, u_pl, v_pl
         for nd_h, cls in zip(segs, segcls):
             if cls == 0:
                 continue
@@ -195,6 +204,53 @@ def _intra_waves(y_pl, u_pl, v_pl, segs, segcls, res_y, res_u, res_v,
             _write(v_pl, recv.to(v_pl.dtype), yc, xc, WC)
         sp.add(segments=nseg)
     return y_pl, u_pl, v_pl
+
+
+def _intra_waves_cuda(y_pl, u_pl, v_pl, segs, segcls, res_y, res_u, res_v,
+                      bd: int, cfl: bool, sizes) -> int:
+    """The intra wave scan of one frame on the card: the non-empty
+    segments go up in one int32 copy from pinned memory, and one call
+    into the kernel library launches csrc/intra_wave.cu once per
+    segment, in order, on the current stream (no synchronisation).
+    Returns the number of segments, which `dec.intra_kernel_segments`
+    counts."""
+    planes, res = (y_pl, u_pl, v_pl), (res_y, res_u, res_v)
+    if (any(t.device != y_pl.device or t.dtype != torch.int32
+            for t in planes + res)
+            or not all(t.is_contiguous() for t in planes)
+            or any(t.dim() != 2 or t.stride(1) != 1 for t in res)
+            or u_pl.shape != v_pl.shape or res_u.shape != res_v.shape
+            or res_u.stride() != res_v.stride()):
+        raise ValueError("the intra wave kernel takes contiguous int32 "
+                         "planes and int32 residual rows on one device")
+    act = segs[:, :, 0] > 0
+    live = (segcls != 0) & act.any(axis=1)
+    nseg = int(live.sum())
+    if nseg == 0:
+        return 0
+    # lanes 0 .. last active lane: the CTAs a segment launches
+    lanes = (LANES - np.argmax(act[live][:, ::-1], axis=1)).astype(np.int32)
+    cls = np.ascontiguousarray(segcls[live], dtype=np.int32)
+    # pinned, so that the copy neither waits for the stream nor stalls it
+    seg_d = torch.from_numpy(np.ascontiguousarray(
+        segs[live], dtype=np.int32)).pin_memory().to(y_pl.device,
+                                                     non_blocking=True)
+    sz = np.asarray(sizes, np.int32)
+    lib = build.load()
+    dev = y_pl.device
+    rc = lib.thor_intra_waves(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        *[t.data_ptr() for t in planes], *y_pl.shape, *u_pl.shape,
+        *[t.data_ptr() for t in res], *res_y.shape, res_y.stride(0),
+        *res_u.shape, res_u.stride(0), seg_d.data_ptr(), cls.ctypes.data,
+        lanes.ctypes.data, nseg, sz.ctypes.data, len(sz), bd, int(cfl),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc < 0:
+        build.check(lib, -rc, "intra_waves")
+    if rc != nseg:
+        raise RuntimeError(f"intra_waves launched {rc} of {nseg} segments")
+    TR.count("dec.intra_kernel_segments", rc)
+    return rc
 
 
 def build_wave_segments(recs, H, W, sizes, lanes=LANES):

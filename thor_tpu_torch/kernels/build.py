@@ -72,6 +72,9 @@ def _bind(lib):
     lib.thor_mc_luma_taps.restype = i
     lib.thor_mc_chroma_taps.argtypes = [p]
     lib.thor_mc_chroma_taps.restype = i
+    lib.thor_intra_waves.argtypes = [i, p, p, p, i, i, i, i, p, p, p, i, i,
+                                     i, i, i, i, p, p, p, i, p, i, i, i, p]
+    lib.thor_intra_waves.restype = i
     lib.thor_cuda_error_string.argtypes = [i]
     lib.thor_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -25,15 +25,18 @@ Counters are always on: plain integers under one lock, so that threads
 `reset(*names)` (every counter where no name is given).  The port's:
 `mc.luma_launches`, `mc.chroma_uv_launches` and `mc.chroma_launches`
 (kernel launches of ops/mc.py: luma, chroma U+V, chroma of one plane)
-and `dec.route.<route>` (frames decoded by each route of
-dec/decoder.py, `decoder.route_frames()`).
+`dec.route.<route>` (frames decoded by each route of
+dec/decoder.py, `decoder.route_frames()`) and
+`dec.intra_kernel_segments` (intra wave segments launched by the kernel
+of csrc/intra_wave.cu).
 
 The port's spans, by layer (counts on the span in brackets):
 - decode: `dec.stream` (the unit's root) > `dec.frame` (one per
   Decoder.decode_frame) > `dec.native_parse` (the C block parser) and
   `dec.device_frame` (DeviceFrameDecoder.run) > `dec.frame_prep` (its
-  host work before pixel_core) and `dec.intra_waves` (the host loop
-  over the intra wave segments, [segments]);
+  host work before pixel_core) and `dec.intra_waves` (the intra wave
+  scan's issue: the kernel's one call on the card, the host loop over
+  the segments on the CPU, [segments]);
 - lockstep decode (dec/multistream.py): `dec.rendezvous` (each
   Rendezvous.wait of a stream thread), `dec.batch_exec` (the batched
   executor on thread 0);
